@@ -1,0 +1,81 @@
+"""vqa_tpu params -> vqa_tpu_torch state_dict (vqa_tpu_torch/tools/convert.py).
+
+The port names its parameters as the reference's torch state_dict does, so
+vqa_tpu's own importer (vqa_tpu/tools/import_torch.py) maps a port
+state_dict back to the flax tree: converting and importing must give back
+the tree unchanged, with no unmapped key, and the two models must agree.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vqa_tpu.models.wrapper import set_model as jax_set_model
+from vqa_tpu.tools.import_torch import import_reference_state_dict
+from vqa_tpu_torch.models.wrapper import set_model
+from vqa_tpu_torch.tools.convert import flax_to_state_dict
+
+B, Q_LEN, EMBED, HIDDEN, V_DIM, OBJS, NTOKEN, ANS = 16, 6, 12, 32, 128, 6, 50, 20
+
+
+def flat(tree):
+    return {tuple(str(p) for p in path): np.asarray(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("att_type,cls_layer,rnn_layer", [
+    ("new", 2, 1), ("base", 2, 1), ("new", 3, 2)])
+def test_convert_round_trips_and_models_agree(rng, att_type, cls_layer,
+                                              rnn_layer):
+    dims = dict(encoder_type="base", predictor_type="base",
+                decoder_type="none", ntoken=NTOKEN, v_dim=V_DIM,
+                embed_dim=EMBED, hidden_dim=HIDDEN, ans_dim=ANS,
+                cls_layer=cls_layer, rnn_layer=rnn_layer, dropout=0.2,
+                att_type=att_type)
+    img = rng.standard_normal((B, OBJS, V_DIM)).astype(np.float32)
+    q = rng.integers(0, NTOKEN, (B, Q_LEN)).astype(np.int32)
+    jm = jax_set_model(**dims)
+    jbatch = {"img": jnp.asarray(img), "q": jnp.asarray(q)}
+    params = jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.key(7), jbatch)["params"])
+
+    port = set_model(**dims, generator=torch.Generator().manual_seed(7))
+    port.load_state_dict(flax_to_state_dict(params))   # strict: every key
+    back, unmapped = import_reference_state_dict(port.state_dict())
+    assert unmapped == []
+    want, got = flat(params), flat(back)
+    assert want.keys() == got.keys()
+    for key in want:
+        np.testing.assert_array_equal(got[key].reshape(want[key].shape),
+                                      want[key], err_msg=str(key))
+
+    with torch.no_grad():
+        predict, _ = port.eval()({"img": torch.from_numpy(img),
+                                  "q": torch.from_numpy(q)})
+    ref, _ = jm.apply({"params": params}, jbatch)
+    np.testing.assert_allclose(predict.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_convert_names_the_reference_keys(rng):
+    """Spot-check the reference's torch names (FCNet slots, nested rnn)."""
+    jm = jax_set_model(encoder_type="base", predictor_type="base",
+                       decoder_type="none", ntoken=NTOKEN, v_dim=V_DIM,
+                       embed_dim=EMBED, hidden_dim=HIDDEN, ans_dim=ANS,
+                       att_type="new")
+    batch = {"img": jnp.zeros((2, OBJS, V_DIM)),
+             "q": jnp.zeros((2, Q_LEN), jnp.int32)}
+    sd = flax_to_state_dict(jm.init(jax.random.key(0), batch)["params"])
+    assert sd["encoder.q_rnn.rnn.weight_ih_l0"].shape == (3 * HIDDEN, EMBED)
+    assert sd["encoder.embedding.weight"].shape == (NTOKEN + 1, EMBED)
+    assert sd["encoder.attention.linear.weight_g"].shape == ()
+    assert sd["predictor.classifier.main.3.weight_v"].shape == (ANS, 2 * HIDDEN)
+    assert sd["encoder.attention.W_v.main.0.weight_v"].shape == (HIDDEN, V_DIM)
+
+
+def test_convert_rejects_unknown_parameters():
+    with pytest.raises(KeyError, match="encoder.mystery"):
+        flax_to_state_dict({"encoder": {"mystery": np.zeros(3)}})

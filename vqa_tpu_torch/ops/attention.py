@@ -1,0 +1,87 @@
+"""Top-down attention over the image boxes.
+
+Counterparts of ``vqa_tpu/ops/attention.py``. Both modules return
+[B, num_objs, 1] weights, a softmax over the boxes. Beam mode (a
+[B, k, q_dim] question against shared boxes) belongs to the decode path and
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vqa_tpu_torch.ops.linear import FCNet, WNDense
+
+
+class ConcatAttention(nn.Module):
+    """softmax_objs(WN([v; q]) -> ReLU -> WN -> 1), held as the reference's
+    Sequential ``sequence`` (Linear, ReLU, Linear). The concat projection
+    is split exactly: ``[v; q] @ W == v @ W_v + q @ W_q``."""
+
+    def __init__(self, v_dim: int, q_dim: int, hidden_dim: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.v_dim = v_dim
+        self.sequence = nn.Sequential(
+            WNDense(v_dim + q_dim, hidden_dim, generator=generator),
+            nn.ReLU(),
+            WNDense(hidden_dim, 1, generator=generator))
+
+    def forward(self, v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """v [B, objs, v_dim], q [B, q_dim] -> [B, objs, 1]."""
+        fc0, fc1 = self.sequence[0], self.sequence[2]
+        w = fc0.weight(v.dtype)
+        vp = torch.matmul(v, w[:, :self.v_dim].t())
+        qp = torch.matmul(q, w[:, self.v_dim:].t()) + fc0.bias.to(q.dtype)
+        logits = fc1(F.relu(vp + qp[:, None, :]))
+        return torch.softmax(logits, dim=1)
+
+
+class MultiplyAttention(nn.Module):
+    """softmax_objs(WN(dropout(FCNet(v) * FCNet(q)))) (attention.py:55-86).
+
+    At inference dropout is the identity, so ``(vp * qp) @ w`` folds exactly
+    into ``vp @ (qp * w)``: a contraction over hidden for each (batch, box)
+    in place of the [B, objs, hidden] joint tensor. The scalar bias drops
+    out under the softmax. Training keeps the joint form for dropout.
+    """
+
+    def __init__(self, v_dim: int, q_dim: int, hidden_dim: int,
+                 dropout: float = 0.2, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.W_v = FCNet(v_dim, hidden_dim, generator=generator)
+        self.W_q = FCNet(q_dim, hidden_dim, generator=generator)
+        self.linear = WNDense(hidden_dim, 1, generator=generator)
+        self.drop = nn.Dropout(dropout)
+
+    def project_v_int8(self, img_q: torch.Tensor, img_scale: torch.Tensor,
+                       use_kernel: bool) -> torch.Tensor:
+        """``W_v`` of the dequantized feed ``img_q * img_scale`` [B, objs,
+        v_dim], read from the int8 payload (the dequant-GEMM kernel when
+        ``use_kernel``) -> [B, objs, hidden] in the scale's dtype."""
+        return self.W_v(img_q, x_scale=img_scale, use_kernel=use_kernel)
+
+    def forward(self, v: Optional[torch.Tensor], q: torch.Tensor, *,
+                v_cache: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """v [B, objs, v_dim] (or its projection ``v_cache``), q [B, q_dim]
+        -> [B, objs, 1]."""
+        vp = v_cache if v_cache is not None else self.W_v(v)
+        qp = self.W_q(q)                                     # [B, hidden]
+        if not self.training:
+            wq = self.linear.fold_vector(qp)                 # [B, hidden]
+            # the joint form's dtype: (vp * qp) promotes
+            out_dt = torch.promote_types(vp.dtype, wq.dtype)
+            logits = torch.einsum("bnd,bd->bn", vp.to(out_dt), wq.to(out_dt))
+            return torch.softmax(logits, dim=1)[..., None]
+        joint = self.drop(vp * qp[:, None, :])
+        return torch.softmax(self.linear(joint), dim=1)
+
+
+def set_att(att_type: str):
+    """String-keyed factory (reference attention.py:11-15)."""
+    return {"base": ConcatAttention, "new": MultiplyAttention}[att_type]

@@ -1,0 +1,132 @@
+"""Build, load and launch the port's CUDA kernels.
+
+At first use every ``vqa_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, under
+``build/kernels/`` at the repository root, named by a hash of the sources
+and flags, and loaded with ``ctypes``. Each C entry point launches on the
+stream it is given, allocates nothing, and returns ``cudaGetLastError()``;
+:func:`launch` raises when that is not 0 and counts the launch in
+:data:`LAUNCHES`. There is no fallback: a missing ``nvcc`` or a failed
+build raises :class:`KernelBuildError` with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# launches of each kernel since the last reset, by kernel name; a run reads
+# them to show that its path went through the kernels
+LAUNCHES = {"gru_v2": 0, "dequant_matmul": 0, "pool_int8": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRY_POINTS = {
+    # xi, w_gk, bh, h32 [2, B, H], h16 [2, B, H], B, T, H, stream
+    "gru_v2_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x_q, scale, w_nk, out, M, K, N, stream
+    "dequant_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # w, x_q, out, B, N, D, stream
+    "pool_int8_forward": (_P, _P, _P, _I, _I, _I, _P),
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """The kernel library could not be built or loaded."""
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels can only be built on a machine with the "
+        "CUDA toolkit")
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``build/kernels/`` unless the library for
+    these exact sources and flags is already there; returns its path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        digest.update(src.name.encode() + src.read_bytes())
+    lib_path = BUILD_DIR / f"libvqa_kernels_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, lib_path)   # atomic: no process loads a half-written file
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.vqa_kernels_error_string.argtypes = (ctypes.c_int,)
+        lib.vqa_kernels_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_operand(kernel: str, name: str, t: torch.Tensor,
+                  dtype: torch.dtype, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
+    that needs no gradient (the kernels define no backward)."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{kernel}: the kernel has no backward; call it "
+                           "under torch.no_grad() or torch.inference_mode()")
+
+
+def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` on ``device``'s current stream with
+    ``args`` (tensors become their data pointers), raise on a CUDA error,
+    and count one launch of ``kernel``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        rc = getattr(lib, entry)(*cargs, stream)
+    if rc != 0:
+        msg = lib.vqa_kernels_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {rc} at launch: {msg}")
+    LAUNCHES[kernel] += 1

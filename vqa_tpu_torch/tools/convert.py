@@ -1,0 +1,75 @@
+"""Convert ``vqa_tpu`` parameters into the port's ``state_dict``.
+
+Input: the flax parameter tree of a ``vqa_tpu`` model (``model.init(...)
+["params"]``) as nested dicts of numpy arrays. Output: a ``state_dict``
+whose keys are the reference's torch names, which the port uses too:
+
+- WNDense ``{v [in, out], g, b}`` -> ``weight_v`` [out, in], 0-dim
+  ``weight_g``, ``bias``;
+- FCNet ``fc{i}`` -> ``main.{3i}`` (slots Linear, ReLU, Dropout), and
+  ConcatAttention ``fc{i}`` -> ``sequence.{2i}`` (slots Linear, ReLU);
+- SentenceEmbedding ``wi_l0`` / ``bi_l0`` / ``wh_l0`` / ``bh_l0`` ->
+  ``rnn.weight_ih_l0`` (transposed) / ``rnn.bias_ih_l0`` / ...;
+- WordEmbedding ``table`` -> ``weight``.
+
+``vqa_tpu/tools/import_torch.py`` ``import_reference_state_dict`` is the
+inverse, so a converted tree round-trips.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+_RNN_LEAF = re.compile(r"^(wi|bi|wh|bh)_(l\d+(?:_reverse)?)$")
+_RNN_NAMES = {"wi": "weight_ih", "bi": "bias_ih", "wh": "weight_hh",
+              "bh": "bias_hh"}
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _walk(node: Dict[str, Any], path: List[str],
+          out: Dict[str, torch.Tensor]) -> None:
+    for key, child in node.items():
+        if isinstance(child, dict) and {"v", "g"} <= set(child) \
+                and set(child) <= {"v", "g", "b"}:
+            base = ".".join(path + [_module_name(key, path)])
+            out[f"{base}.weight_v"] = _tensor(child["v"]).t().contiguous()
+            out[f"{base}.weight_g"] = _tensor(child["g"]).reshape(())
+            if "b" in child:
+                out[f"{base}.bias"] = _tensor(child["b"])
+        elif isinstance(child, dict):
+            _walk(child, path + [_module_name(key, path)], out)
+        elif key == "table":
+            out[".".join(path + ["weight"])] = _tensor(child)
+        elif _RNN_LEAF.match(key):
+            kind, rest = _RNN_LEAF.match(key).groups()
+            t = _tensor(child)
+            out[".".join(path + ["rnn", f"{_RNN_NAMES[kind]}_{rest}"])] = \
+                t.t().contiguous() if kind.startswith("w") else t
+        else:
+            raise KeyError(f"no port name for parameter "
+                           f"{'.'.join(path + [key])}")
+
+
+def _module_name(key: str, path: List[str]) -> str:
+    m = re.fullmatch(r"fc(\d+)", key)
+    if m is None:
+        return key
+    i = int(m.group(1))
+    # fc{i} directly under `attention` is ConcatAttention's Sequential
+    if path and path[-1] == "attention":
+        return f"sequence.{2 * i}"
+    return f"main.{3 * i}"
+
+
+def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``vqa_tpu`` params tree -> port ``state_dict`` (f32 CPU tensors)."""
+    out: Dict[str, torch.Tensor] = {}
+    _walk(params, [], out)
+    return out
