@@ -3,7 +3,9 @@
 
 Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # the smoke run
+    python3 chip_smoke.py --profile   # and a torch.profiler table of one
+                                      # B=4096 beam decode
 
 Phases, each of which raises (exit code 1) on failure:
 
@@ -17,16 +19,24 @@ Phases, each of which raises (exit code 1) on failure:
    the repo's data layer, through ``VQAModel.forward_vqa``; every kernel's
    launch count must rise, and the logits must agree with the same model
    whose kernels are swapped for their plain versions;
-5. timing (for information): each kernel and its plain version, and the
-   forward with the kernels and with the plain path, at B=16384, by CUDA
-   events.
+5. decode: the full-width Up-Down caption model (BUTD decoder, bf16,
+   ``use_pallas=True``, seeded weights) beam-decodes the same requests
+   through ``make_beam_search(fused_vocab=True)``; the launch counts of
+   vocab_topk_lse, gru_v2 and dequant_matmul must rise, the beams must be
+   well formed, and the best beams must agree with the same model whose
+   vocab kernel, and then every kernel, is swapped for its plain version;
+6. timing (for information): each kernel and its plain version, the VQA
+   forward at B=16384, and the beam decode at B=4096 (k=3, c_len=20) with
+   the kernels and on the plain path (``use_pallas=False``), by CUDA events.
 
-The line before the last is ``{"kernels": [...]}``, one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+The last three lines are the card's name and power limit as nvidia-smi
+gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
+counts of the path that runs it) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -42,6 +52,8 @@ import torch
 NTOKEN, EMBED, HIDDEN, V_DIM, OBJS, ANS, Q_LEN = 20000, 300, 1024, 2048, 36, 3129, 10
 SERVE_BATCH, SERVE_REQUESTS = 512, 4
 TIME_BATCH = 16384
+# the decode serving shape of scripts/bench_beam.py
+BEAM_K, C_LEN, DECODE_TIME_BATCH = 3, 20, 4096
 
 # Tolerances. gru_v2: the f32 state |h| < 1; kernel and plain version sum in
 # different orders, and where that flips the bf16 rounding of an h operand,
@@ -54,6 +66,26 @@ TIME_BATCH = 16384
 GRU_ATOL = 2e-3
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
 LOGIT_REL_TOL = 3e-2
+# vocab_topk_lse: f32 sums of the same 1024 exact bf16 products in another
+# order (the kernel's mma tiles against cuBLAS f32), |logit| of a few units:
+# each differs by a few f32 ulps of the sum of |terms|, far below 1e-4
+# (measured 3.5e-6), and so do the logsumexps. Two logits closer than
+# twice that may swap ranks, so indices must be equal only on rows whose
+# plain top-(k+1) values are further apart; on the others each index must
+# point at a logit within tolerance of the value reported for it.
+VOCAB_ATOL, VOCAB_RTOL = 1e-4, 1e-5
+# Beams: the vocab kernel against its plain version on the same encoder
+# output differs only by those f32 ulps, so a best beam changes only where
+# two candidates of some step lie within ~1e-5 of each other.
+BEAM_AGREE_VOCAB = 0.98
+# Against every kernel on its plain version: the GRU kernel's f32 state
+# differs from the plain version's by sum order (up to 3e-4), which flips
+# bf16 roundings of the question vector, so the attention over the boxes,
+# the features the decoder reads and every step's logits move by a few
+# bf16 ulps; a best beam of 19 steps turns wherever such a shift crosses
+# the gap between two candidates of a random-weight head. Measured on an
+# H100: 0.986 of 2048 best beams identical, 0.994 of their tokens.
+BEAM_AGREE_ALL = 0.95
 
 KERNELS = {
     "gru_v2": {"source": "vqa_tpu_torch/csrc/gru_v2.cu",
@@ -62,7 +94,12 @@ KERNELS = {
                        "replaces": "vqa_tpu/ops/pallas/feed_gemm.py:55"},
     "pool_int8": {"source": "vqa_tpu_torch/csrc/lazyv_pool.cu",
                   "replaces": "vqa_tpu/ops/pallas/lazyv_pool.py:46"},
+    "vocab_topk_lse": {"source": "vqa_tpu_torch/csrc/vocab_topk.cu",
+                       "replaces": "vqa_tpu/ops/pallas/vocab_topk.py:114"},
 }
+# the kernels each served path must launch
+VQA_KERNELS = ("gru_v2", "dequant_matmul", "pool_int8")
+DECODE_KERNELS = ("vocab_topk_lse", "gru_v2", "dequant_matmul")
 
 
 def log(msg: str) -> None:
@@ -98,7 +135,8 @@ def time_pair(kernel_fn, plain_fn, iters: int):
     return (k0 + k1) / 2, (p0 + p1) / 2
 
 
-def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool) -> None:
+def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool,
+                  vocab_topk) -> None:
     """Swap each kernel wrapper for its plain version while ``stack`` is open."""
     stack.enter_context(mock.patch.object(
         gru_v2, "gru_last_state_v2", gru_v2.gru_last_state_v2_reference))
@@ -106,20 +144,68 @@ def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool) -> None:
         feed_gemm, "dequant_matmul", feed_gemm.dequant_matmul_reference))
     stack.enter_context(mock.patch.object(
         lazyv_pool, "pool_int8", lazyv_pool.pool_int8_reference))
+    stack.enter_context(mock.patch.object(
+        vocab_topk, "vocab_topk_lse", vocab_topk.vocab_topk_lse_reference))
+
+
+def compare_beams(name: str, got, want, start_id: int) -> float:
+    """Share of requests' images whose best beam is the same in ``got``
+    and ``want`` (lists of (tokens, scores)); logs it with the largest score
+    difference on those beams."""
+    tok = torch.cat([t[:, 0] for t, _ in got])
+    w_tok = torch.cat([t[:, 0] for t, _ in want])
+    score = torch.cat([s[:, 0] for _, s in got])
+    w_score = torch.cat([s[:, 0] for _, s in want])
+    same = (tok == w_tok).all(dim=1)
+    agree = same.float().mean().item()
+    diff = (score - w_score).abs()[same]
+    log(f"decode: best beams vs {name}: {agree:.4f} identical over "
+        f"{same.numel()} images; on those, max |score diff| "
+        f"{diff.max().item() if diff.numel() else float('nan'):.3g}, "
+        f"tokens agreeing overall {(tok == w_tok).float().mean().item():.4f}")
+    require(bool((tok[:, 0] == start_id).all()), "beams must start with <start>")
+    return agree
+
+
+def profile_decode(decode, steps: int) -> None:
+    """torch.profiler over one decode: device time by kernel, per step."""
+    from torch.profiler import ProfilerActivity, profile
+    decode()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_time_total > 0
+              and e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in events) / 1e3
+    log(f"profile: one decode, wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"(idle share {1 - busy / wall:.3f}); device ms per step of {steps}:")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:20]:
+        log(f"profile:   {e.device_time_total / 1e3 / steps:9.4f}  x{e.count:<5d} {e.key[:90]}")
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also print a torch.profiler table of one "
+                             f"B={DECODE_TIME_BATCH} beam decode")
+    args = parser.parse_args()
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from vqa_tpu_torch.ops.kernels import _build, feed_gemm, gru_v2, lazyv_pool
+    from vqa_tpu_torch.ops.kernels import (
+        _build, feed_gemm, gru_v2, lazyv_pool, vocab_topk)
     from vqa_tpu_torch.models.wrapper import set_model
+    from vqa_tpu_torch.tools.beam import make_beam_search, tokens_to_captions
     from vqa_tpu.data.dataset import set_dataset
     from vqa_tpu.data.loader import Loader
     from vqa_tpu.data.synthetic import make_synthetic_root
+    from vqa_tpu.data.tokenizer import Vocab
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -166,6 +252,47 @@ def main() -> int:
         att = torch.softmax(torch.randn(batch, OBJS, device=dev, generator=gen), dim=1)
         return (att * scale.view(batch, OBJS).float()).to(bf16), x_q.view(batch, OBJS, V_DIM)
 
+    def vocab_inputs(rows: int, ties: bool):
+        # decoder states lie in (-1, 1); the head keeps torch's Linear init
+        h = (torch.rand(rows, HIDDEN, device=dev, generator=gen) * 2 - 1).to(bf16)
+        bound = HIDDEN ** -0.5
+        w = ((torch.rand(NTOKEN, HIDDEN, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
+        b = ((torch.rand(NTOKEN, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
+        if ties:
+            # two equal columns far above the rest: the exact tie must go to
+            # the lower index, on every row
+            w[NTOKEN - 7] = w[11]
+            b[NTOKEN - 7] = b[11] = 8.0
+        return h, w, b
+
+    def compare_vocab(rows: int, ties: bool, k: int) -> None:
+        h, w, b = vocab_inputs(rows, ties)
+        vals, idx, lse = vocab_topk.vocab_topk_lse(h, w, b, k)
+        p_vals, p_idx, p_lse = vocab_topk.vocab_topk_lse_reference(h, w, b, k)
+        logits = torch.matmul(h.float(), w.float().t()) + b.float()
+        shape = f"R={rows} H={HIDDEN} V={NTOKEN} k={k}{' ties' if ties else ''}"
+        compare("vocab_topk_lse", vals, p_vals, VOCAB_ATOL, VOCAB_RTOL, shape + " vals")
+        compare("vocab_topk_lse", lse, p_lse, VOCAB_ATOL, VOCAB_RTOL, shape + " lse")
+        tol = VOCAB_ATOL + VOCAB_RTOL * logits.abs().amax(dim=1)
+        top = vocab_topk.topk_first(logits, k + 1)[0]
+        tie_free = ((top[:, :-1] - top[:, 1:]).amin(dim=1) > 2 * tol)
+        mismatch = (idx != p_idx).any(dim=1)
+        at_idx = logits.gather(1, idx.long())
+        off = ((at_idx - vals).abs() > tol[:, None]).any(dim=1)
+        log(f"kernel vocab_topk_lse {shape} idx: {mismatch.sum().item()} rows "
+            f"differ from the plain version, {(mismatch & tie_free).sum().item()} "
+            f"of them tie-free (of {tie_free.sum().item()}), {off.sum().item()} "
+            f"indices off their values")
+        require(not (mismatch & tie_free).any().item(),
+                f"vocab_topk_lse {shape}: indices differ on tie-free rows")
+        require(not off.any().item(), f"vocab_topk_lse {shape}: an index is "
+                "not where its value is")
+        if ties:
+            require(bool((idx[:, :2] == torch.tensor([11, NTOKEN - 7], device=dev,
+                                                     dtype=idx.dtype)).all()),
+                    f"vocab_topk_lse {shape}: an exact tie did not go to the "
+                    "lower index")
+
     def compare(name: str, got: torch.Tensor, want: torch.Tensor,
                 atol: float, rtol: float, shape: str) -> None:
         torch.cuda.synchronize()
@@ -196,6 +323,9 @@ def main() -> int:
             compare("pool_int8", lazyv_pool.pool_int8(w, x_q),
                     lazyv_pool.pool_int8_reference(w, x_q),
                     BF16_ATOL, BF16_RTOL, f"B={batch} N={OBJS} D={V_DIM}")
+        # the beam step's rows R = B x k at B=4096, and a ragged R
+        for rows, ties in ((DECODE_TIME_BATCH * BEAM_K, False), (1000 * BEAM_K + 1, True)):
+            compare_vocab(rows, ties, BEAM_K)
 
     # -- 4. serve a few requests through the port's main path --------------
     dims = dict(encoder_type="base", predictor_type="base", decoder_type="none",
@@ -214,6 +344,7 @@ def main() -> int:
                               is_val=True, dataset_type="vqa",
                               feature_mode="int8")
         host_batches = list(Loader(dataset, SERVE_BATCH, drop_last=True))
+        vocab = Vocab.load(os.path.join(root, "vocab_list.txt"))
     require(len(host_batches) == SERVE_REQUESTS,
             f"loader gave {len(host_batches)} batches")
     requests = [{"q": torch.from_numpy(b["q"]).to(dev, torch.long),
@@ -228,8 +359,8 @@ def main() -> int:
         launches = dict(_build.LAUNCHES)
         log(f"serve: {SERVE_REQUESTS} requests of B={SERVE_BATCH} through "
             f"VQAModel.forward_vqa; kernel launches {launches}")
-        for name in KERNELS:
-            require(launches[name] > 0, f"the main path never launched {name}")
+        for name in VQA_KERNELS:
+            require(launches[name] > 0, f"the VQA path never launched {name}")
         for score, label, target in served:
             require(score.shape == (SERVE_BATCH, ANS) and label.shape == (SERVE_BATCH,),
                     f"forward_vqa shapes {tuple(score.shape)}, {tuple(label.shape)}")
@@ -237,7 +368,7 @@ def main() -> int:
 
         got = [model(r)[0] for r in requests]
         with ExitStack() as stack:
-            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool)
+            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk)
             want = [model(r)[0] for r in requests]
         got, want = torch.cat(got).float(), torch.cat(want).float()
         require(got.shape == (SERVE_BATCH * SERVE_REQUESTS, ANS), f"logits {tuple(got.shape)}")
@@ -250,7 +381,54 @@ def main() -> int:
             f"nonzero logits {(want > 0).float().mean().item():.3f}")
         require(rel <= LOGIT_REL_TOL, "logits disagree with the plain versions")
 
-    # -- 5. timing at B=16384 ----------------------------------------------
+    # -- 5. decode the same requests into captions -------------------------
+    dec_dims = dict(encoder_type="base", predictor_type="none",
+                    decoder_type="butd", ntoken=NTOKEN, v_dim=V_DIM,
+                    embed_dim=EMBED, hidden_dim=HIDDEN,
+                    decoder_hidden_dim=HIDDEN, c_len=C_LEN, dropout=0.2,
+                    att_type="new")
+    dec_model = set_model(**dec_dims, use_pallas=True,
+                          generator=torch.Generator().manual_seed(1))
+    dec_model = dec_model.to(device=dev, dtype=bf16).eval()
+    beam = make_beam_search(dec_model, BEAM_K, C_LEN, vocab.start, vocab.end,
+                            fused_vocab=True)
+    with torch.inference_mode():
+        _build.reset_launches()
+        decoded = [beam(r) for r in requests]
+        torch.cuda.synchronize()
+        dec_launches = dict(_build.LAUNCHES)
+        log(f"decode: {SERVE_REQUESTS} requests of B={SERVE_BATCH} through "
+            f"make_beam_search(k={BEAM_K}, c_len={C_LEN}, fused_vocab=True); "
+            f"kernel launches {dec_launches}")
+        for name in DECODE_KERNELS:
+            require(dec_launches[name] > 0, f"the decode path never launched {name}")
+        for tokens, scores in decoded:
+            require(tokens.shape == (SERVE_BATCH, BEAM_K, C_LEN)
+                    and scores.shape == (SERVE_BATCH, BEAM_K),
+                    f"beam shapes {tuple(tokens.shape)}, {tuple(scores.shape)}")
+            require(bool(((tokens >= 0) & (tokens < NTOKEN)).all()), "token out of range")
+            require(bool(torch.isfinite(scores).all()), "non-finite beam scores")
+            require(bool((scores[:, :-1] >= scores[:, 1:]).all()),
+                    "beams are not ranked best first")
+        captions = tokens_to_captions(decoded[0][0][:, 0].cpu().numpy(), vocab, vocab.end)
+        require(len(captions) == SERVE_BATCH, "one caption per image")
+        log(f"decode: first captions {captions[:2]!r}")
+        with mock.patch.object(vocab_topk, "vocab_topk_lse",
+                               vocab_topk.vocab_topk_lse_reference):
+            plain_vocab = [beam(r) for r in requests]
+        agree_vocab = compare_beams("the plain vocab head (same encoder output)",
+                                    decoded, plain_vocab, vocab.start)
+        require(agree_vocab >= BEAM_AGREE_VOCAB,
+                f"best beams agree {agree_vocab:.4f} < {BEAM_AGREE_VOCAB}")
+        with ExitStack() as stack:
+            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk)
+            plain_all = [beam(r) for r in requests]
+        agree_all = compare_beams("every kernel on its plain version", decoded,
+                                  plain_all, vocab.start)
+        require(agree_all >= BEAM_AGREE_ALL,
+                f"best beams agree {agree_all:.4f} < {BEAM_AGREE_ALL}")
+
+    # -- 6. timing ----------------------------------------------------------
     times = {}
     with torch.inference_mode():
         xi, wh, bh = gru_inputs(TIME_BATCH)
@@ -269,6 +447,22 @@ def main() -> int:
         for name, (k_ms, p_ms) in times.items():
             log(f"time {name} B={TIME_BATCH}: kernel {k_ms:.4f} ms, plain "
                 f"{p_ms:.4f} ms [{card}]")
+        rows = DECODE_TIME_BATCH * BEAM_K
+        h, w, b = vocab_inputs(rows, ties=False)
+        times["vocab_topk_lse"] = time_pair(
+            lambda: vocab_topk.vocab_topk_lse(h, w, b, BEAM_K),
+            lambda: vocab_topk.vocab_topk_lse_reference(h, w, b, BEAM_K), 10)
+        def unfused_head():
+            logits = torch.matmul(h, w.t()) + b
+            return vocab_topk.topk_first(logits, BEAM_K), torch.logsumexp(logits, -1)
+
+        unfused_ms = time_ms(unfused_head, 10)
+        del h, w, b
+        log(f"time vocab_topk_lse R={rows} H={HIDDEN} V={NTOKEN} k={BEAM_K}: "
+            f"kernel {times['vocab_topk_lse'][0]:.4f} ms, plain (f32) "
+            f"{times['vocab_topk_lse'][1]:.4f} ms, the unfused bf16 head of "
+            f"use_pallas=False (cuBLAS, topk_first, logsumexp) "
+            f"{unfused_ms:.4f} ms [{card}]")
 
         plain_model = set_model(**dims, use_pallas=False).to(device=dev, dtype=bf16).eval()
         plain_model.load_state_dict(model.state_dict())
@@ -280,13 +474,39 @@ def main() -> int:
         log(f"time forward B={TIME_BATCH} int8 feed bf16: kernels {fwd_k:.3f} ms "
             f"({TIME_BATCH / fwd_k * 1e3:.1f} q/s), plain {fwd_p:.3f} ms "
             f"({TIME_BATCH / fwd_p * 1e3:.1f} q/s) [{card}]")
+        del plain_model, batch, x_q, scale
 
+        dec_plain = set_model(**dec_dims, use_pallas=False).to(device=dev, dtype=bf16).eval()
+        dec_plain.load_state_dict(dec_model.state_dict())
+        beam_plain = make_beam_search(dec_plain, BEAM_K, C_LEN, vocab.start, vocab.end)
+        beam_unfused = make_beam_search(dec_model, BEAM_K, C_LEN, vocab.start, vocab.end)
+        x_q, scale = int8_feed(DECODE_TIME_BATCH * OBJS, V_DIM)
+        batch = {"q": torch.randint(0, NTOKEN, (DECODE_TIME_BATCH, Q_LEN), device=dev,
+                                    generator=gen),
+                 "img_q": x_q.view(DECODE_TIME_BATCH, OBJS, V_DIM),
+                 "img_scale": scale.view(DECODE_TIME_BATCH, OBJS)}
+        dec_k, dec_p = time_pair(lambda: beam(batch), lambda: beam_plain(batch), 2)
+        dec_u = time_ms(lambda: beam_unfused(batch), 2)
+        log(f"time decode B={DECODE_TIME_BATCH} k={BEAM_K} c_len={C_LEN} int8 feed bf16: "
+            f"kernels with fused_vocab {dec_k:.2f} ms "
+            f"({DECODE_TIME_BATCH / dec_k * 1e3:.1f} captions/s), plain "
+            f"(use_pallas=False) {dec_p:.2f} ms "
+            f"({DECODE_TIME_BATCH / dec_p * 1e3:.1f} captions/s); kernels with "
+            f"the unfused head {dec_u:.2f} ms "
+            f"({DECODE_TIME_BATCH / dec_u * 1e3:.1f} captions/s) [{card}]")
+        if args.profile:
+            profile_decode(lambda: beam(batch), C_LEN - 1)
+
+    paths = {"vqa": launches, "decode": dec_launches}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
-                "launches": launches[name], "max_abs_err": max_err[name],
+                "launches": (dec_launches if name == "vocab_topk_lse"
+                             else launches)[name],
+                "launches_by_path": {p: n[name] for p, n in paths.items()},
+                "max_abs_err": max_err[name],
                 "ms": times[name][0], "plain_ms": times[name][1]}
                for name in KERNELS]
-    print(json.dumps({"kernels": entries}))
     print(card)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -60,6 +60,56 @@ def test_convert_round_trips_and_models_agree(rng, att_type, cls_layer,
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("decoder_type,predictor_type,rnn_type,use_mtl", [
+    ("butd", "none", "GRU", False), ("base", "none", "LSTM", False),
+    ("butd", "base", "GRU", True)])
+def test_convert_round_trips_caption_models(rng, decoder_type, predictor_type,
+                                            rnn_type, use_mtl):
+    """Decoder cells (``wi``/``bi``/``wh``/``bh`` with no layer suffix),
+    the plain vocab heads ``{w, b}`` and the MTL ``log_vars``; the
+    teacher-forced caption forwards agree."""
+    c_len = 5
+    dims = dict(encoder_type="base", predictor_type=predictor_type,
+                decoder_type=decoder_type, ntoken=NTOKEN, v_dim=V_DIM,
+                embed_dim=EMBED, hidden_dim=HIDDEN, decoder_hidden_dim=24,
+                ans_dim=ANS, c_len=c_len, rnn_type=rnn_type, dropout=0.2,
+                att_type="new", use_mtl=use_mtl)
+    batch = {"img": rng.standard_normal((B, OBJS, V_DIM)).astype(np.float32),
+             "q": rng.integers(0, NTOKEN, (B, Q_LEN)).astype(np.int32),
+             "c": rng.integers(0, NTOKEN, (B, c_len)).astype(np.int32),
+             "cap_len": rng.integers(1, c_len + 1, B).astype(np.int32)}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jm = jax_set_model(**dims)
+    params = jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.key(3), jbatch)["params"])
+    if use_mtl:
+        params["log_vars"] = np.array([0.25, -0.5], np.float32)
+
+    sd = flax_to_state_dict(params)
+    head = "h2_fcnet" if decoder_type == "butd" else "fcnet"
+    assert sd[f"generator.{head}.weight"].shape == (NTOKEN, 24)
+    cell = "language_rnn" if decoder_type == "butd" else "rnn"
+    gates = 3 if rnn_type == "GRU" else 4
+    assert sd[f"generator.{cell}.weight_hh"].shape == (gates * 24, 24)
+    port = set_model(**dims)
+    port.load_state_dict(sd)                          # strict: every key
+    back, unmapped = import_reference_state_dict(port.state_dict())
+    assert unmapped == []
+    want, got = flat(params), flat(back)
+    assert want.keys() == got.keys()
+    for key in want:
+        np.testing.assert_array_equal(got[key].reshape(want[key].shape),
+                                      want[key], err_msg=str(key))
+
+    with torch.no_grad():
+        cap = port.eval().forward_cap({k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
+    ref = jm.apply({"params": params}, jbatch, method=jm.forward_cap)
+    np.testing.assert_allclose(cap["predict"].numpy(),
+                               np.asarray(ref["predict"]), rtol=1e-4,
+                               atol=1e-5)
+
+
 def test_convert_names_the_reference_keys(rng):
     """Spot-check the reference's torch names (FCNet slots, nested rnn)."""
     jm = jax_set_model(encoder_type="base", predictor_type="base",

@@ -17,7 +17,9 @@ import jax.numpy as jnp
 from vqa_tpu.ops.pallas.feed_gemm import dequant_matmul as jax_dequant_matmul
 from vqa_tpu.ops.pallas.gru_v2 import gru_last_state_v2 as jax_gru_v2
 from vqa_tpu.ops.pallas.lazyv_pool import pool_int8 as jax_pool_int8
-from vqa_tpu_torch.ops.kernels import _build, feed_gemm, gru_v2, lazyv_pool
+from vqa_tpu.ops.pallas.vocab_topk import vocab_topk_lse as jax_vocab_topk_lse
+from vqa_tpu_torch.ops.kernels import (
+    _build, feed_gemm, gru_v2, lazyv_pool, vocab_topk)
 
 BF16 = ml_dtypes.bfloat16
 # One bf16 rounding of an f32 sum: two sums in different orders may land on
@@ -79,6 +81,50 @@ def test_pool_int8_plain_matches_pallas(rng, batch):
                                rtol=BF16_RTOL, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_vocab_topk_lse_plain_matches_pallas(rng, dtype, k):
+    """V=1000 against the Pallas kernel's 256-column chunks: the last chunk
+    is ragged. Both take f32 sums of exact products and add the bias in
+    f32; only the sum order differs (rtol 1e-5, atol 1e-5 as
+    tests/test_tools.py). Columns 5/700 (other chunks) and 40/41 (one
+    chunk) are duplicated with a large bias, so two exact ties lead every
+    row: both sides must give the lower index first, as lax.top_k does."""
+    rows, hidden, vocab = 64, 32, 1000
+    h = rng.standard_normal((rows, hidden))
+    w = rng.standard_normal((vocab, hidden)) * 0.1     # the port's [V, H]
+    b = rng.standard_normal(vocab) * 0.1
+    w[700], w[41] = w[5], w[40]
+    b[5] = b[700] = 20.0
+    b[40] = b[41] = 10.0
+    if dtype == "bf16":
+        (h_j, h_t), (w_j, w_t), (b_j, b_t) = map(bf16_pair, (h, w.T.copy(), b))
+        w_t = w_t.t().contiguous()
+    else:
+        h_t, w_t, b_t = (torch.from_numpy(a.astype(np.float32)) for a in (h, w, b))
+        h_j, w_j, b_j = (jnp.asarray(a.astype(np.float32)) for a in (h, w.T, b))
+    want = jax_vocab_topk_lse(h_j, w_j, b_j, k=k, tile_r=32, tile_v=256,
+                              interpret=True)
+    vals, idx, lse = vocab_topk.vocab_topk_lse(h_t, w_t, b_t, k)
+    assert (vals.dtype, idx.dtype, lse.dtype) == (torch.float32, torch.int32,
+                                                 torch.float32)
+    assert vals.shape == idx.shape == (rows, k) and lse.shape == (rows, 1)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(idx[:, 0].numpy(), np.full(rows, 5))
+    if k > 1:
+        np.testing.assert_array_equal(idx[:, 1].numpy(), np.full(rows, 700))
+    for got, ref in ((vals, want[0]), (lse, want[2])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_topk_first_breaks_ties_by_lowest_index():
+    x = torch.tensor([[1.0, 3.0, 3.0, 0.0, 3.0], [2.0, 2.0, 2.0, 2.0, 1.0]])
+    vals, idx = vocab_topk.topk_first(x, 3)
+    assert idx.tolist() == [[1, 2, 4], [0, 1, 2]]
+    assert vals.tolist() == [[3.0, 3.0, 3.0], [2.0, 2.0, 2.0]]
+
+
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     """No nvcc: the loader raises a clear error instead of returning None."""
     monkeypatch.setattr(_build, "_lib", None)
@@ -108,6 +154,9 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, tmp_path):
         lambda: lazyv_pool.pool_int8(
             torch.empty(4, 6, **meta),
             torch.empty(4, 6, 32, device="meta", dtype=torch.int8)),
+        lambda: vocab_topk.vocab_topk_lse(torch.empty(9, 64, **meta),
+                                          torch.empty(100, 64, **meta),
+                                          torch.empty(100, **meta), 3),
     ]
     before = dict(_build.LAUNCHES)
     for call in calls:
@@ -135,3 +184,14 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         lazyv_pool.pool_int8(torch.empty(4, 6, device="meta"),
                              torch.empty(4, 6, 32, device="meta",
                                          dtype=torch.int8))
+    h, w, b = (torch.empty(9, 64, **meta), torch.empty(100, 64, **meta),
+               torch.empty(100, **meta))
+    with pytest.raises(ValueError, match="k=9"):
+        vocab_topk.vocab_topk_lse(h, w, b, 9)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        vocab_topk.vocab_topk_lse(torch.empty(9, 60, **meta),
+                                  torch.empty(100, 60, **meta), b, 3)
+    with pytest.raises(ValueError, match="shapes"):
+        vocab_topk.vocab_topk_lse(h, w.t(), b, 3)
+    with pytest.raises(TypeError, match="bfloat16"):
+        vocab_topk.vocab_topk_lse(h, w, torch.empty(100, device="meta"), 3)

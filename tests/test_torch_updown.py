@@ -139,7 +139,6 @@ def test_compute_score_and_bce_match_jax(rng):
 @pytest.mark.parametrize("override", [
     {"encoder_type": "relation"}, {"encoder_type": "cap"},
     {"predictor_type": "base-cap"}, {"predictor_type": "q-cap"},
-    {"decoder_type": "base"}, {"decoder_type": "butd"},
     {"frozen_embedding": np.zeros((NTOKEN + 4, EMBED), np.float32)},
     {"use_int8": True},
 ])

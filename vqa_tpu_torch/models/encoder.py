@@ -4,7 +4,8 @@
 Batch dict: ``q`` [B, q_len] int tokens, and either ``img`` [B, objs, v_dim]
 float features or the int8 feed ``img_q`` [B, objs, v_dim] int8 with
 per-box scales ``img_scale`` [B, objs] (the features are
-``img_q * img_scale[..., None]`` in the scale's dtype).
+``img_q * img_scale[..., None]`` in the scale's dtype); optionally the
+caption ``c`` [B, c_len] int tokens with its length ``cap_len`` [B].
 """
 
 from __future__ import annotations
@@ -28,15 +29,22 @@ class BaseEncoder(nn.Module):
     ``use_pallas`` routes inference through the hand-written kernels: the
     question GRU (see :class:`SentenceEmbedding`) and, on a bf16 int8 feed,
     the dequant-GEMM v-projection and the lazy-v pooling.
+
+    On the int8 feed the outputs follow their readers: ``with_v_sum`` (a
+    VQA predictor reads the pooled ``v_sum``) and ``with_v`` (a caption
+    decoder reads the attended features ``v``).
     """
 
     def __init__(self, ntoken: int, v_dim: int, embed_dim: int,
                  hidden_dim: int, rnn_layer: int = 1, dropout: float = 0.5,
                  rnn_type: str = "GRU", att_type: str = "base",
                  att_dropout: float = 0.2, use_pallas: bool = False, *,
+                 with_v: bool = False, with_v_sum: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.use_pallas = use_pallas
+        self.with_v = with_v
+        self.with_v_sum = with_v_sum
         self.embedding = WordEmbedding(ntoken, embed_dim, generator=generator)
         # torch applies RNN dropout only between stacked layers
         self.q_rnn = SentenceEmbedding(embed_dim, hidden_dim,
@@ -49,6 +57,11 @@ class BaseEncoder(nn.Module):
                                            generator=generator, **att_kwargs)
         self.q_net = FCNet(hidden_dim, hidden_dim, generator=generator)
 
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The word embedding, for the caption decoders and the beam search
+        (encoder.py:113-116)."""
+        return self.embedding(tokens)
+
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         """Returns ``q`` [B, hidden] and ``v_att`` [B, objs, 1], plus
@@ -56,9 +69,23 @@ class BaseEncoder(nn.Module):
         - dense feed: ``v`` = v_att * img [B, objs, v_dim];
         - int8 feed: ``v_q8`` (= img_q), ``v_w`` = v_att * img_scale
           [B, objs] (so the attended features are ``v_w[..., None] * v_q8``)
-          and their sum over the boxes ``v_sum`` [B, v_dim]. The dequantized
-          features and ``v_att * v`` are never formed, so there is no ``v``.
+          and, with ``with_v_sum``, their sum over the boxes ``v_sum``
+          [B, v_dim]; with ``with_v``, ``v`` = v_att * (img_q * img_scale),
+          rounded as JAX rounds it: the dequantized features in the scale's
+          dtype, then the product. Without it the dequantized features and
+          ``v_att * v`` are never formed;
+        - with a caption ``c`` in the batch: ``c`` embedded [B, c_len,
+          embed], ``c_target`` (= the tokens) and ``cap_len``.
         """
+        out = self._visual(batch)
+        if "c" in batch:
+            out["c"] = self.embedding(batch["c"])
+            out["c_target"] = batch["c"]
+            out["cap_len"] = batch["cap_len"]
+        return out
+
+    def _visual(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
         q = self.q_rnn(self.embedding(batch["q"]))          # [B, hidden]
         if "img_q" not in batch:
             v = batch["img"]
@@ -70,14 +97,21 @@ class BaseEncoder(nn.Module):
         # as the GRU kernel's own bf16 rule does
         use_kernel = (self.use_pallas and not self.training
                       and img_scale.dtype == torch.bfloat16)
-        if isinstance(self.attention, MultiplyAttention):
+        concat = not isinstance(self.attention, MultiplyAttention)
+        # the dequantized features, only where a reader needs them dense
+        v = (img_q.to(img_scale.dtype) * img_scale[..., None]
+             if concat or self.with_v else None)
+        if concat:
+            v_att = self.attention(v, q)
+        else:
             vp = self.attention.project_v_int8(img_q, img_scale, use_kernel)
             v_att = self.attention(None, q, v_cache=vp)
-        else:   # ConcatAttention reads dense features
-            v_att = self.attention(
-                img_q.to(img_scale.dtype) * img_scale[..., None], q)
         w = v_att[..., 0] * img_scale.to(v_att.dtype)
-        pool = lazyv_pool.pool_int8 if use_kernel \
-            else lazyv_pool.pool_int8_reference
-        return {"q": self.q_net(q), "v_att": v_att, "v_q8": img_q, "v_w": w,
-                "v_sum": pool(w, img_q)}
+        out = {"q": self.q_net(q), "v_att": v_att, "v_q8": img_q, "v_w": w}
+        if self.with_v_sum:
+            pool = lazyv_pool.pool_int8 if use_kernel \
+                else lazyv_pool.pool_int8_reference
+            out["v_sum"] = pool(w, img_q)
+        if self.with_v:
+            out["v"] = v_att * v
+        return out

@@ -1,9 +1,11 @@
 """Top-down attention over the image boxes.
 
 Counterparts of ``vqa_tpu/ops/attention.py``. Both modules return
-[B, num_objs, 1] weights, a softmax over the boxes. Beam mode (a
-[B, k, q_dim] question against shared boxes) belongs to the decode path and
-is not ported yet.
+[B, num_objs, 1] weights, a softmax over the boxes. In beam mode the
+question is [B, k, q_dim] against boxes shared by the k beams of an image,
+and the weights are [B, k, num_objs, 1], a softmax over axis 2. The
+v-side projection ``project_v`` has no question input, so a decoder
+computes it once per batch and passes it to every step as ``v_cache``.
 """
 
 from __future__ import annotations
@@ -31,12 +33,23 @@ class ConcatAttention(nn.Module):
             nn.ReLU(),
             WNDense(hidden_dim, 1, generator=generator))
 
-    def forward(self, v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-        """v [B, objs, v_dim], q [B, q_dim] -> [B, objs, 1]."""
+    def project_v(self, v: torch.Tensor) -> torch.Tensor:
+        """The v rows of the concat projection, without the bias (it joins
+        on the question side): v [B, objs, v_dim] -> [B, objs, hidden]."""
+        w = self.sequence[0].weight(v.dtype)
+        return torch.matmul(v, w[:, :self.v_dim].t())
+
+    def forward(self, v: Optional[torch.Tensor], q: torch.Tensor, *,
+                v_cache: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """v [B, objs, v_dim] (or its projection ``v_cache``), q [B, q_dim]
+        -> [B, objs, 1]; q [B, k, q_dim] -> [B, k, objs, 1]."""
         fc0, fc1 = self.sequence[0], self.sequence[2]
-        w = fc0.weight(v.dtype)
-        vp = torch.matmul(v, w[:, :self.v_dim].t())
+        vp = v_cache if v_cache is not None else self.project_v(v)
+        w = fc0.weight(q.dtype)
         qp = torch.matmul(q, w[:, self.v_dim:].t()) + fc0.bias.to(q.dtype)
+        if q.dim() == 3:
+            logits = fc1(F.relu(vp[:, None] + qp[:, :, None, :]))
+            return torch.softmax(logits, dim=2)
         logits = fc1(F.relu(vp + qp[:, None, :]))
         return torch.softmax(logits, dim=1)
 
@@ -59,6 +72,10 @@ class MultiplyAttention(nn.Module):
         self.linear = WNDense(hidden_dim, 1, generator=generator)
         self.drop = nn.Dropout(dropout)
 
+    def project_v(self, v: torch.Tensor) -> torch.Tensor:
+        """``W_v`` of v [B, objs, v_dim] -> [B, objs, hidden]."""
+        return self.W_v(v)
+
     def project_v_int8(self, img_q: torch.Tensor, img_scale: torch.Tensor,
                        use_kernel: bool) -> torch.Tensor:
         """``W_v`` of the dequantized feed ``img_q * img_scale`` [B, objs,
@@ -69,15 +86,20 @@ class MultiplyAttention(nn.Module):
     def forward(self, v: Optional[torch.Tensor], q: torch.Tensor, *,
                 v_cache: Optional[torch.Tensor] = None) -> torch.Tensor:
         """v [B, objs, v_dim] (or its projection ``v_cache``), q [B, q_dim]
-        -> [B, objs, 1]."""
+        -> [B, objs, 1]; q [B, k, q_dim] -> [B, k, objs, 1]."""
         vp = v_cache if v_cache is not None else self.W_v(v)
-        qp = self.W_q(q)                                     # [B, hidden]
+        qp = self.W_q(q)                                 # [B(, k), hidden]
+        beam = q.dim() == 3
         if not self.training:
-            wq = self.linear.fold_vector(qp)                 # [B, hidden]
+            wq = self.linear.fold_vector(qp)             # [B(, k), hidden]
             # the joint form's dtype: (vp * qp) promotes
             out_dt = torch.promote_types(vp.dtype, wq.dtype)
-            logits = torch.einsum("bnd,bd->bn", vp.to(out_dt), wq.to(out_dt))
-            return torch.softmax(logits, dim=1)[..., None]
+            logits = torch.einsum("bnd,bkd->bkn" if beam else "bnd,bd->bn",
+                                  vp.to(out_dt), wq.to(out_dt))
+            return torch.softmax(logits, dim=-1)[..., None]
+        if beam:
+            joint = self.drop(vp[:, None] * qp[:, :, None, :])
+            return torch.softmax(self.linear(joint), dim=2)
         joint = self.drop(vp * qp[:, None, :])
         return torch.softmax(self.linear(joint), dim=1)
 

@@ -1,9 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
 At first use every ``vqa_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, under
-``build/kernels/`` at the repository root, named by a hash of the sources
-and flags, and loaded with ``ctypes``. Each C entry point launches on the
+``sm_90a``, one ``nvcc`` per source, all started together, and linked into
+one shared library with a plain C interface, under ``build/kernels/`` at the
+repository root, named by a hash of the sources and flags, and loaded with
+``ctypes``. Each C entry point launches on the
 stream it is given, allocates nothing, and returns ``cudaGetLastError()``;
 :func:`launch` raises when that is not 0 and counts the launch in
 :data:`LAUNCHES`. There is no fallback: a missing ``nvcc`` or a failed
@@ -26,11 +27,12 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # launches of each kernel since the last reset, by kernel name; a run reads
 # them to show that its path went through the kernels
-LAUNCHES = {"gru_v2": 0, "dequant_matmul": 0, "pool_int8": 0}
+LAUNCHES = {"gru_v2": 0, "dequant_matmul": 0, "pool_int8": 0,
+            "vocab_topk_lse": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
@@ -40,6 +42,12 @@ _ENTRY_POINTS = {
     "dequant_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _P),
     # w, x_q, out, B, N, D, stream
     "pool_int8_forward": (_P, _P, _P, _I, _I, _I, _P),
+    # h, w, b, part_v, part_i, part_ms, vals, idx, lse, R, H, V, k,
+    # tiles_per_split, stream
+    "vocab_topk_lse_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P),
+    # R, V, k, *tiles_per_split (no stream: a host-side query)
+    "vocab_topk_lse_plan": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -67,23 +75,41 @@ def _find_nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``build/kernels/`` unless the library for
-    these exact sources and flags is already there; returns its path."""
+    these exact sources and flags is already there; returns its path. Each
+    source compiles in its own ``nvcc`` process, all at once, and one more
+    links the objects."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         digest.update(src.name.encode() + src.read_bytes())
-    lib_path = BUILD_DIR / f"libvqa_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libvqa_kernels_{tag}.so"
     if lib_path.exists():
         return lib_path
     nvcc = _find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    objs = [obj_dir / f"{src.stem}.o" for src in sources]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(sources, objs))]
+    failures = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): "
+                            f"{' '.join(cmd)}\n{err}")
+    if failures:
+        raise KernelBuildError("\n".join(failures))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise KernelBuildError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, lib_path)   # atomic: no process loads a half-written file
+    shutil.rmtree(obj_dir, ignore_errors=True)
     return lib_path
 
 

@@ -1,4 +1,4 @@
-"""Recurrent layers over fixed-length sequences.
+"""Recurrent layers over fixed-length sequences, and the decoders' cells.
 
 Counterpart of ``vqa_tpu/ops/rnn.py``. The input projection ``x @ W_i`` for
 all time steps is one matmul up front; the loop carries only the recurrent
@@ -67,6 +67,40 @@ def rnn_scan(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
             c, h = lstm_step(c, h, xi_all[:, t], hi)
         ys[t] = h
     return torch.stack(ys, dim=1)
+
+
+class RNNCell(nn.Module):
+    """One GRU/LSTM step (counterpart of ``vqa_tpu/ops/rnn.py``
+    ``RNNCellBase``), with ``nn.GRUCell``'s parameter names and layout:
+    ``weight_ih`` [G*H, in], ``weight_hh`` [G*H, H], ``bias_ih``,
+    ``bias_hh``, all U(-1/sqrt(H), 1/sqrt(H)). The carry is h [B, H] for a
+    GRU and (h, c) for an LSTM; the step runs in the input's dtype."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, rnn_type: str = "GRU",
+                 *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if rnn_type not in ("GRU", "LSTM"):
+            raise ValueError(f"unknown rnn_type: {rnn_type}")
+        self.rnn_type = rnn_type
+        bound = 1.0 / math.sqrt(hidden_dim)
+        gh = (3 if rnn_type == "GRU" else 4) * hidden_dim
+        for name, shape in (("weight_ih", (gh, in_dim)),
+                            ("weight_hh", (gh, hidden_dim)),
+                            ("bias_ih", (gh,)), ("bias_hh", (gh,))):
+            self.register_parameter(name, nn.Parameter(
+                uniform_(torch.empty(shape), bound, generator)))
+
+    def forward(self, carry, x: torch.Tensor):
+        """carry, x [B, in] -> the next carry."""
+        xi = torch.matmul(x, self.weight_ih.to(x.dtype).t()) \
+            + self.bias_ih.to(x.dtype)
+        h = carry if self.rnn_type == "GRU" else carry[0]
+        hi = torch.matmul(h, self.weight_hh.to(h.dtype).t()) \
+            + self.bias_hh.to(h.dtype)
+        if self.rnn_type == "GRU":
+            return gru_step(h, xi, hi)
+        c_new, h_new = lstm_step(carry[1], h, xi, hi)
+        return h_new, c_new
 
 
 class _RNNWeights(nn.Module):

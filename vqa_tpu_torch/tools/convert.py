@@ -10,7 +10,12 @@ whose keys are the reference's torch names, which the port uses too:
   ConcatAttention ``fc{i}`` -> ``sequence.{2i}`` (slots Linear, ReLU);
 - SentenceEmbedding ``wi_l0`` / ``bi_l0`` / ``wh_l0`` / ``bh_l0`` ->
   ``rnn.weight_ih_l0`` (transposed) / ``rnn.bias_ih_l0`` / ...;
-- WordEmbedding ``table`` -> ``weight``.
+- decoder cells ``wi`` / ``bi`` / ``wh`` / ``bh`` -> ``weight_ih``
+  (transposed) / ``bias_ih`` / ... on the cell itself, as ``nn.GRUCell``;
+- the decoders' plain Linear ``{w [in, out], b}`` -> ``weight`` [out, in],
+  ``bias``;
+- WordEmbedding ``table`` -> ``weight``;
+- the MTL weights ``log_vars`` as they are.
 
 ``vqa_tpu/tools/import_torch.py`` ``import_reference_state_dict`` is the
 inverse, so a converted tree round-trips.
@@ -24,7 +29,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-_RNN_LEAF = re.compile(r"^(wi|bi|wh|bh)_(l\d+(?:_reverse)?)$")
+_RNN_LEAF = re.compile(r"^(wi|bi|wh|bh)(?:_(l\d+(?:_reverse)?))?$")
 _RNN_NAMES = {"wi": "weight_ih", "bi": "bias_ih", "wh": "weight_hh",
               "bh": "bias_hh"}
 
@@ -43,15 +48,25 @@ def _walk(node: Dict[str, Any], path: List[str],
             out[f"{base}.weight_g"] = _tensor(child["g"]).reshape(())
             if "b" in child:
                 out[f"{base}.bias"] = _tensor(child["b"])
+        elif isinstance(child, dict) and set(child) == {"w", "b"}:
+            base = ".".join(path + [key])
+            out[f"{base}.weight"] = _tensor(child["w"]).t().contiguous()
+            out[f"{base}.bias"] = _tensor(child["b"])
         elif isinstance(child, dict):
             _walk(child, path + [_module_name(key, path)], out)
         elif key == "table":
             out[".".join(path + ["weight"])] = _tensor(child)
+        elif key == "log_vars" and not path:
+            out[key] = _tensor(child)
         elif _RNN_LEAF.match(key):
             kind, rest = _RNN_LEAF.match(key).groups()
             t = _tensor(child)
-            out[".".join(path + ["rnn", f"{_RNN_NAMES[kind]}_{rest}"])] = \
-                t.t().contiguous() if kind.startswith("w") else t
+            t = t.t().contiguous() if kind.startswith("w") else t
+            # a stacked RNN nests its weights as ``rnn.*_l{k}``; a cell
+            # holds them itself
+            name = [_RNN_NAMES[kind]] if rest is None \
+                else ["rnn", f"{_RNN_NAMES[kind]}_{rest}"]
+            out[".".join(path + name)] = t
         else:
             raise KeyError(f"no port name for parameter "
                            f"{'.'.join(path + [key])}")
