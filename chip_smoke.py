@@ -4,8 +4,9 @@
 Run from the repository root:
 
     python3 chip_smoke.py             # the smoke run
-    python3 chip_smoke.py --profile   # and a torch.profiler table of one
-                                      # B=4096 beam decode
+    python3 chip_smoke.py --profile   # and torch.profiler tables of one
+                                      # B=4096 beam decode and one B=4096
+                                      # MTL training step
 
 Phases, each of which raises (exit code 1) on failure:
 
@@ -14,11 +15,17 @@ Phases, each of which raises (exit code 1) on failure:
 2. build: compiles the port's CUDA kernels from ``vqa_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (ragged ones included), within a stated tolerance;
+   the three decode-attention kernels at B=4096 and B=1003 in four input
+   regimes (f32 over an f32 or an int8 payload, bf16 over a bf16 payload,
+   bf16 over an int8 payload with factored weights), with and without
+   dropout, and the keep mask the forward kernel emits equal to
+   ``keep_mask`` bit for bit;
 4. serve: the full-width Up-Down model (bf16, ``use_pallas=True``, weights
    from a seeded generator) answers a few batches of the int8 feed made by
-   the repo's data layer, through ``VQAModel.forward_vqa``; every kernel's
-   launch count must rise, and the logits must agree with the same model
-   whose kernels are swapped for their plain versions;
+   the port's data layer (``vqa_tpu_torch.data``), through
+   ``VQAModel.forward_vqa``; every kernel's launch count must rise, and the
+   logits must agree with the same model whose kernels are swapped for
+   their plain versions;
 5. decode: the full-width Up-Down caption model (BUTD decoder, bf16,
    ``use_pallas=True``, seeded weights) beam-decodes the same requests
    through ``make_beam_search(fused_vocab=True)``; the launch counts of
@@ -27,17 +34,34 @@ Phases, each of which raises (exit code 1) on failure:
    vocab kernel, and then every kernel, is swapped for its plain version;
 6. timing (for information): each kernel and its plain version, the VQA
    forward at B=16384, and the beam decode at B=4096 (k=3, c_len=20) with
-   the kernels and on the plain path (``use_pallas=False``), by CUDA events.
+   the kernels and on the plain path (``use_pallas=False``), by CUDA events;
+7. train: the full-width Up-Down MTL model (VQA head and BUTD caption
+   decoder, uncertainty-weighted loss, dropout 0.5 / 0.2, f32 masters with
+   bf16 compute, ``use_pallas=True``, Adamax lr 2e-3, clip 0.25) trains a few
+   steps on length-bucketed Loader batches of B=512 from a synthetic VQA-E
+   root; each step must launch decode_att_fwd and decode_att_bwd once per
+   decoder step and decode_att_dvp once, the losses must be finite, and one
+   batch trained again and again must lower its loss;
+8. train, kernels against plain versions: the gradients of one step with the
+   kernels and with every kernel swapped for its plain version (the same
+   Philox masks), in f32 and then in bf16, within stated tolerances;
+9. train timing (for information): each decode-attention kernel and its
+   plain version at B=4096, and the training step at B=4096 (19 decoder
+   steps) with the kernels and on the plain path (``use_pallas=False``), by
+   CUDA events, with its peak device memory.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
-counts of the path that runs it) and ``{"ok": true, "device": {...}}``.
+counts of each path, its time against its plain version and its bound) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -86,6 +110,53 @@ BEAM_AGREE_VOCAB = 0.98
 # the gap between two candidates of a random-weight head. Measured on an
 # H100: 0.986 of 2048 best beams identical, 0.994 of their tokens.
 BEAM_AGREE_ALL = 0.95
+# decode-attention kernels against their plain versions. f32 outputs: the
+# same f32 products summed in another order (warp trees against einsum), so
+# they differ by f32 rounding of sums of up to 2048 terms, far below 1e-5
+# of the largest value (measured 2e-7). bf16 outputs: both round the same
+# f32 value to bf16, so where the two f32 sums straddle a rounding point
+# they are one bf16 ulp apart (2**-7 of the value at most); values near
+# zero keep the f32 sum-order error, far below 2**-12 of the largest.
+ATT_F32_RTOL, ATT_F32_ATOL_REL = 1e-5, 1e-5
+ATT_BF16_RTOL, ATT_BF16_ATOL_REL = 2.0 ** -7, 2.0 ** -12
+ATT_THRESH, ATT_SCALE = 205, 256.0 / 205     # quantized_keep(1 - 0.2)
+ATT_SEED, ATT_STEP = 0x5EED1234, 7
+# the MTL training step: the JAX package's shipping MTL batch (B=4096,
+# scripts/trace_mtl.py) is timed; Loader batches of 512 are trained
+TRAIN_BATCH, TRAIN_STEPS, REPEAT_STEPS, TRAIN_TIME_BATCH = 512, 4, 10, 4096
+TRAIN_LR, TRAIN_CLIP, RUN_SEED = 2e-3, 0.25, 1234
+# gradients of one training step with the kernels against the same step on
+# the plain versions, as max |diff| / max |plain| of each compared tensor.
+# f32: the kernels' f32 sums differ from the plain versions' by ~1e-7 of
+# their values; 16 recurrent steps and the softmax carry such differences
+# to every gradient, but far below 1e-3. bf16: an attention output one bf16
+# ulp (2**-8) away from the plain version's moves the next recurrent
+# states' bf16 roundings, and the gradients summed over 512 rows and 16
+# steps inherit a few of those ulps: 5e-2.
+GRAD_F32_TOL, GRAD_BF16_TOL = 1e-3, 5e-2
+# the parameters whose gradients are compared: the decoder's attention (the
+# attention linear's bias only shifts the logits under the softmax, so its
+# gradient is rounding noise around 0 and is left out), its two cells, and
+# the MTL weights
+GRAD_PREFIXES = ("generator.attention.W_v.", "generator.attention.W_q.",
+                 "generator.attention.linear.weight_", "generator.word_rnn.",
+                 "generator.language_rnn.", "log_vars")
+# the card's peaks for the bound of each kernel: HBM3 bytes per ms, dense
+# bf16 tensor-core and f32 (non-tensor) operations per ms (NVIDIA's H100 SXM
+# data sheet, at its full power limit of 700 W)
+HBM_BYTES_PER_MS = 3.35e9
+PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9}
+
+# kernel-name markers of the kinds a profile sums device time by, first
+# match wins
+PROFILE_KINDS = (
+    ("the port's kernels", ("decode_att_", "vocab_topk_", "gru_v2_",
+                            "dequant_matmul_", "pool_int8_")),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "Gemm")),
+    ("int64 elementwise (the torch Philox of the hidden masks)", ("<long",)),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce_kernel",)),
+)
 
 KERNELS = {
     "gru_v2": {"source": "vqa_tpu_torch/csrc/gru_v2.cu",
@@ -96,10 +167,20 @@ KERNELS = {
                   "replaces": "vqa_tpu/ops/pallas/lazyv_pool.py:46"},
     "vocab_topk_lse": {"source": "vqa_tpu_torch/csrc/vocab_topk.cu",
                        "replaces": "vqa_tpu/ops/pallas/vocab_topk.py:114"},
+    "decode_att_fwd": {"source": "vqa_tpu_torch/csrc/decode_att.cu",
+                       "replaces": "vqa_tpu/ops/pallas/decode_att.py:175"},
+    "decode_att_bwd": {"source": "vqa_tpu_torch/csrc/decode_att.cu",
+                       "replaces": "vqa_tpu/ops/pallas/decode_att.py:300"},
+    "decode_att_dvp": {"source": "vqa_tpu_torch/csrc/decode_att.cu",
+                       "replaces": "vqa_tpu/ops/pallas/decode_att.py:403"},
 }
-# the kernels each served path must launch
+# the kernels each path must launch
 VQA_KERNELS = ("gru_v2", "dequant_matmul", "pool_int8")
 DECODE_KERNELS = ("vocab_topk_lse", "gru_v2", "dequant_matmul")
+TRAIN_KERNELS = ("decode_att_fwd", "decode_att_bwd", "decode_att_dvp")
+# the path whose run gives each kernel's "launches"
+MAIN_PATH = {**{k: "vqa" for k in VQA_KERNELS}, "vocab_topk_lse": "decode",
+             **{k: "train" for k in TRAIN_KERNELS}}
 
 
 def log(msg: str) -> None:
@@ -135,8 +216,19 @@ def time_pair(kernel_fn, plain_fn, iters: int):
     return (k0 + k1) / 2, (p0 + p1) / 2
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(nbytes_: int, ops: float, kind: str):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM rate
+    and the operations over the card's peak for their type."""
+    mem, ops_ms = nbytes_ / HBM_BYTES_PER_MS, ops / PEAK_OPS_PER_MS[kind]
+    return (mem, "bytes") if mem >= ops_ms else (ops_ms, "operations")
+
+
 def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool,
-                  vocab_topk) -> None:
+                  vocab_topk, decode_att) -> None:
     """Swap each kernel wrapper for its plain version while ``stack`` is open."""
     stack.enter_context(mock.patch.object(
         gru_v2, "gru_last_state_v2", gru_v2.gru_last_state_v2_reference))
@@ -146,6 +238,9 @@ def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool,
         lazyv_pool, "pool_int8", lazyv_pool.pool_int8_reference))
     stack.enter_context(mock.patch.object(
         vocab_topk, "vocab_topk_lse", vocab_topk.vocab_topk_lse_reference))
+    for name in TRAIN_KERNELS:
+        stack.enter_context(mock.patch.object(
+            decode_att, name, getattr(decode_att, name + "_reference")))
 
 
 def compare_beams(name: str, got, want, start_id: int) -> float:
@@ -167,30 +262,39 @@ def compare_beams(name: str, got, want, start_id: int) -> float:
     return agree
 
 
-def profile_decode(decode, steps: int) -> None:
-    """torch.profiler over one decode: device time by kernel, per step."""
+def profile_run(name: str, run, steps: int) -> None:
+    """torch.profiler over one call of ``run``: device time by kernel, per
+    step of ``steps``."""
     from torch.profiler import ProfilerActivity, profile
-    decode()
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode()
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_time_total > 0
               and e.device_type.name == "CUDA"]
     busy = sum(e.device_time_total for e in events) / 1e3
-    log(f"profile: one decode, wall {wall:.2f} ms, device busy {busy:.2f} ms "
+    log(f"profile: one {name}, wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"(idle share {1 - busy / wall:.3f}); device ms per step of {steps}:")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:20]:
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:25]:
         log(f"profile:   {e.device_time_total / 1e3 / steps:9.4f}  x{e.count:<5d} {e.key[:90]}")
+    by_kind = {}
+    for e in events:
+        kind = next((k for k, keys in PROFILE_KINDS if any(x in e.key for x in keys)),
+                    "other elementwise")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total / 1e3
+    log(f"profile: one {name}, device ms by kind: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also print a torch.profiler table of one "
-                             f"B={DECODE_TIME_BATCH} beam decode")
+                        help="also print torch.profiler tables of one "
+                             f"B={DECODE_TIME_BATCH} beam decode and one "
+                             f"B={TRAIN_TIME_BATCH} training step")
     args = parser.parse_args()
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -199,13 +303,16 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vqa_tpu_torch.ops.kernels import (
-        _build, feed_gemm, gru_v2, lazyv_pool, vocab_topk)
+        _build, decode_att, feed_gemm, gru_v2, lazyv_pool, vocab_topk)
     from vqa_tpu_torch.models.wrapper import set_model
     from vqa_tpu_torch.tools.beam import make_beam_search, tokens_to_captions
-    from vqa_tpu.data.dataset import set_dataset
-    from vqa_tpu.data.loader import Loader
-    from vqa_tpu.data.synthetic import make_synthetic_root
-    from vqa_tpu.data.tokenizer import Vocab
+    from vqa_tpu_torch.training.optim import make_optimizer
+    from vqa_tpu_torch.training.state import (
+        TrainState, backward_step, make_train_step)
+    from vqa_tpu_torch.data.dataset import set_dataset
+    from vqa_tpu_torch.data.loader import Loader
+    from vqa_tpu_torch.data.synthetic import make_synthetic_root
+    from vqa_tpu_torch.data.tokenizer import Vocab
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -306,8 +413,76 @@ def main() -> int:
         require(bad == 0, f"{name} {shape}: kernel disagrees with its plain version")
         max_err[name] = max(max_err.get(name, 0.0), err)
 
+    def att_inputs(batch: int, regime: str):
+        """Decode-attention operands (vp2, pool2, w, qp, k) of one regime:
+        "f32" (f32 payload, factored weights), "f32-int8", "bf16" (bf16
+        payload, no weights) or "bf16-int8" (the main path: the int8
+        payload with the weights att * img_scale). vp and qp are ReLU
+        outputs; k is a weight-normed row of hidden weights."""
+        dt = torch.float32 if regime.startswith("f32") else bf16
+        vp = torch.rand(batch, OBJS * HIDDEN, device=dev, generator=gen).to(dt)
+        qp = torch.rand(batch, HIDDEN, device=dev, generator=gen).to(dt)
+        k = ((torch.rand(HIDDEN, device=dev, generator=gen) * 2 - 1) * HIDDEN ** -0.5).to(dt)
+        if regime.endswith("int8"):
+            pool = torch.randint(-127, 128, (batch, OBJS * V_DIM), device=dev,
+                                 generator=gen, dtype=torch.int8)
+            att = torch.softmax(torch.randn(batch, OBJS, device=dev, generator=gen), dim=1)
+            scale = (torch.rand(batch, OBJS, device=dev, generator=gen) * 2 + 2.5) / 127
+            return vp, pool, (att * scale).to(dt), qp, k
+        pool = torch.randn(batch, OBJS * V_DIM, device=dev, generator=gen).to(dt)
+        w = torch.rand(batch, OBJS, device=dev, generator=gen).to(dt) if regime == "f32" else None
+        return vp, pool, w, qp, k
+
+    def compare_att(batch: int, regime: str, thresh) -> None:
+        """The three decode-attention kernels against their plain versions on
+        the same inputs, and the forward's emitted mask against keep_mask."""
+        vp, pool, w, qp, k = att_inputs(batch, regime)
+        rtol, atol_rel = ((ATT_F32_RTOL, ATT_F32_ATOL_REL) if regime.startswith("f32")
+                          else (ATT_BF16_RTOL, ATT_BF16_ATOL_REL))
+        scale = ATT_SCALE if thresh else 1.0
+        shape = f"B={batch} {regime} " + (f"thresh={thresh}" if thresh else "no dropout")
+
+        def check(name, got, want, what):
+            compare(name, got, want, atol_rel * want.float().abs().max().item(), rtol,
+                    f"{shape} {what}")
+
+        out = decode_att.decode_att_fwd(vp, pool, w, qp, k, ATT_SEED, ATT_STEP, objs=OBJS,
+                                        att_scale=scale, thresh=thresh,
+                                        emit_mask=thresh is not None)
+        want = decode_att.decode_att_fwd_reference(vp, pool, w, qp, k, ATT_SEED, ATT_STEP,
+                                                   objs=OBJS, att_scale=scale, thresh=thresh)
+        check("decode_att_fwd", out[0], want[0], "att")
+        check("decode_att_fwd", out[1], want[1], "att_v")
+        if thresh:
+            mask = decode_att.keep_mask(ATT_SEED, ATT_STEP, batch, OBJS, HIDDEN, thresh,
+                                        device=dev)
+            same = torch.equal(out[2], mask)
+            log(f"kernel decode_att_fwd {shape}: emitted mask equal to keep_mask bit "
+                f"for bit: {same}; keep rate {out[2].float().mean().item():.5f} "
+                f"(thresh/256 = {thresh / 256:.5f})")
+            require(same, f"decode_att_fwd {shape}: the emitted mask is not keep_mask's")
+        g_attv = torch.randn(batch, V_DIM, device=dev, generator=gen).to(qp.dtype)
+        args = (vp, pool, w, want[0], g_attv, ATT_SEED, ATT_STEP)
+        got = decode_att.decode_att_bwd(*args, objs=OBJS, thresh=thresh)
+        ref = decode_att.decode_att_bwd_reference(*args, objs=OBJS, thresh=thresh)
+        for what, a, b in zip(("d_qp_pre", "m", "dl"), got, ref):
+            check("decode_att_bwd", a, b, what)
+        steps = C_LEN - 1
+        dls = (torch.randn(steps, batch, OBJS, device=dev, generator=gen) * 0.01).to(qp.dtype)
+        qps = torch.rand(steps, batch, HIDDEN, device=dev, generator=gen).to(qp.dtype)
+        kw = dict(objs=OBJS, att_scale=scale, thresh=thresh, out_dtype=qp.dtype)
+        check("decode_att_dvp", decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **kw),
+              decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED, **kw),
+              f"T={steps} d_vp")
+
     # -- 3. kernels against their plain versions ---------------------------
     with torch.inference_mode():
+        # the MTL training batch of 4096 and a ragged batch, in every regime
+        # the decode scan feeds the kernels
+        for batch in (TRAIN_TIME_BATCH, 1003):
+            for regime in ("f32", "f32-int8", "bf16", "bf16-int8"):
+                for thresh in (ATT_THRESH, None):
+                    compare_att(batch, regime, thresh)
         for batch in (1024, 1000):
             xi, wh, bh = gru_inputs(batch)
             compare("gru_v2", gru_v2.gru_last_state_v2(xi, wh, bh),
@@ -368,7 +543,7 @@ def main() -> int:
 
         got = [model(r)[0] for r in requests]
         with ExitStack() as stack:
-            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk)
+            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk, decode_att)
             want = [model(r)[0] for r in requests]
         got, want = torch.cat(got).float(), torch.cat(want).float()
         require(got.shape == (SERVE_BATCH * SERVE_REQUESTS, ANS), f"logits {tuple(got.shape)}")
@@ -421,7 +596,7 @@ def main() -> int:
         require(agree_vocab >= BEAM_AGREE_VOCAB,
                 f"best beams agree {agree_vocab:.4f} < {BEAM_AGREE_VOCAB}")
         with ExitStack() as stack:
-            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk)
+            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk, decode_att)
             plain_all = [beam(r) for r in requests]
         agree_all = compare_beams("every kernel on its plain version", decoded,
                                   plain_all, vocab.start)
@@ -429,20 +604,27 @@ def main() -> int:
                 f"best beams agree {agree_all:.4f} < {BEAM_AGREE_ALL}")
 
     # -- 6. timing ----------------------------------------------------------
-    times = {}
+    times, bounds = {}, {}
     with torch.inference_mode():
         xi, wh, bh = gru_inputs(TIME_BATCH)
         times["gru_v2"] = time_pair(lambda: gru_v2.gru_last_state_v2(xi, wh, bh),
                                     lambda: gru_v2.gru_last_state_v2_reference(xi, wh, bh), 10)
+        bounds["gru_v2"] = bound(nbytes(xi, wh, bh, gru_v2.gru_last_state_v2(xi, wh, bh)),
+                                 2.0 * TIME_BATCH * Q_LEN * HIDDEN * 3 * HIDDEN, "bf16")
         del xi, wh, bh
         x_q, scale, w = gemm_inputs(TIME_BATCH * OBJS)
         times["dequant_matmul"] = time_pair(
             lambda: feed_gemm.dequant_matmul(x_q, scale, w),
             lambda: feed_gemm.dequant_matmul_reference(x_q, scale, w), 5)
+        bounds["dequant_matmul"] = bound(
+            nbytes(x_q, scale, w, feed_gemm.dequant_matmul(x_q, scale, w)),
+            2.0 * TIME_BATCH * OBJS * V_DIM * HIDDEN, "bf16")
         del x_q, scale, w
         w, x_q = pool_inputs(TIME_BATCH)
         times["pool_int8"] = time_pair(lambda: lazyv_pool.pool_int8(w, x_q),
                                        lambda: lazyv_pool.pool_int8_reference(w, x_q), 10)
+        bounds["pool_int8"] = bound(nbytes(w, x_q, lazyv_pool.pool_int8(w, x_q)),
+                                    2.0 * TIME_BATCH * OBJS * V_DIM, "f32")
         del w, x_q
         for name, (k_ms, p_ms) in times.items():
             log(f"time {name} B={TIME_BATCH}: kernel {k_ms:.4f} ms, plain "
@@ -452,6 +634,9 @@ def main() -> int:
         times["vocab_topk_lse"] = time_pair(
             lambda: vocab_topk.vocab_topk_lse(h, w, b, BEAM_K),
             lambda: vocab_topk.vocab_topk_lse_reference(h, w, b, BEAM_K), 10)
+        bounds["vocab_topk_lse"] = bound(
+            nbytes(h, w, b, *vocab_topk.vocab_topk_lse(h, w, b, BEAM_K)),
+            2.0 * rows * HIDDEN * NTOKEN, "bf16")
         def unfused_head():
             logits = torch.matmul(h, w.t()) + b
             return vocab_topk.topk_first(logits, BEAM_K), torch.logsumexp(logits, -1)
@@ -495,15 +680,178 @@ def main() -> int:
             f"the unfused head {dec_u:.2f} ms "
             f"({DECODE_TIME_BATCH / dec_u * 1e3:.1f} captions/s) [{card}]")
         if args.profile:
-            profile_decode(lambda: beam(batch), C_LEN - 1)
+            profile_run("decode", lambda: beam(batch), C_LEN - 1)
 
-    paths = {"vqa": launches, "decode": dec_launches}
+    # -- 7. train the full-width MTL model on Loader batches ----------------
+    mtl_dims = dict(encoder_type="base", predictor_type="base", decoder_type="butd",
+                    ntoken=NTOKEN, v_dim=V_DIM, embed_dim=EMBED, hidden_dim=HIDDEN,
+                    decoder_hidden_dim=HIDDEN, ans_dim=ANS, c_len=C_LEN,
+                    att_type="new", use_mtl=True)   # dropout 0.5 / 0.2, the defaults
+    mtl = set_model(**mtl_dims, use_pallas=True,
+                    generator=torch.Generator().manual_seed(2))
+    state = TrainState(mtl, make_optimizer(mtl, lr=TRAIN_LR, max_norm=TRAIN_CLIP),
+                       seed=RUN_SEED)
+    train_step = make_train_step(mtl, state.optimizer, compute_dtype=bf16)
+    with tempfile.TemporaryDirectory() as root:
+        make_synthetic_root(root, split="train2014", num_images=64,
+                            num_questions=TRAIN_BATCH * 8, num_objs=OBJS,
+                            v_dim=V_DIM, vocab_size=NTOKEN, num_answers=ANS,
+                            q_len=Q_LEN, c_len=C_LEN, seed=1)
+        dataset = set_dataset(os.path.join(root, "annot"),
+                              os.path.join(root, "features"), ANS,
+                              is_train=True, dataset_type="vqa-e",
+                              feature_mode="int8")
+        loader = Loader(dataset, TRAIN_BATCH, shuffle=True, drop_last=True,
+                        length_bucket=True)
+        host_train = list(itertools.islice(loader, TRAIN_STEPS))
+    require(len(host_train) == TRAIN_STEPS, f"loader gave {len(host_train)} batches")
+    train_batches = [{"q": torch.from_numpy(b["q"]).to(dev, torch.long),
+                      "a": torch.from_numpy(b["a"]).to(dev),
+                      "c": torch.from_numpy(b["c"]).to(dev, torch.long),
+                      "cap_len": torch.from_numpy(b["cap_len"]).to(dev, torch.long),
+                      "img_q": torch.from_numpy(b["img_q"]).to(dev),
+                      "img_scale": torch.from_numpy(b["img_scale"]).to(dev)}
+                     for b in host_train]
+    decoder_steps = [b["c"].shape[1] - 1 for b in train_batches]
+    _build.reset_launches()
+    metrics = [train_step(state, b) for b in train_batches]
+    torch.cuda.synchronize()
+    train_launches = dict(_build.LAUNCHES)
+    losses = [m["loss"].item() for m in metrics]
+    log(f"train: {TRAIN_STEPS} steps of B={TRAIN_BATCH} (decoder steps "
+        f"{decoder_steps}) through make_train_step (bf16 over f32 masters); "
+        f"losses {[round(x, 4) for x in losses]}, VQA "
+        f"{[round(m['train/loss'].item(), 4) for m in metrics]}, caption "
+        f"{[round(m['train/cap/loss'].item(), 4) for m in metrics]}; kernel "
+        f"launches {train_launches}")
+    require(all(map(math.isfinite, losses)), "non-finite training loss")
+    require(train_launches["decode_att_fwd"] == sum(decoder_steps)
+            and train_launches["decode_att_bwd"] == sum(decoder_steps),
+            "decode_att_fwd / _bwd did not run once per decoder step")
+    require(train_launches["decode_att_dvp"] == TRAIN_STEPS,
+            "decode_att_dvp did not run once per training step")
+    repeated = [train_step(state, train_batches[0])["loss"] for _ in range(REPEAT_STEPS)]
+    repeated = [x.item() for x in repeated]
+    log(f"train: one batch {REPEAT_STEPS} more times: losses "
+        f"{[round(x, 4) for x in repeated]}")
+    require(all(map(math.isfinite, repeated)) and repeated[-1] < repeated[0],
+            "the repeated batch's loss did not fall")
+
+    # -- 8. one step's gradients: kernels against plain versions ------------
+    def step_grads(dtype):
+        loss = backward_step(mtl, train_batches[1], RUN_SEED, 0, dtype)["loss"].item()
+        return loss, {n: p.grad.detach().clone() for n, p in mtl.named_parameters()
+                      if n.startswith(GRAD_PREFIXES)}
+
+    grad_agreement = {}
+    for dtype, tol in ((None, GRAD_F32_TOL), (bf16, GRAD_BF16_TOL)):
+        label = "bf16" if dtype is bf16 else "f32"
+        _build.reset_launches()
+        k_loss, k_grads = step_grads(dtype)
+        require(all(_build.LAUNCHES[n] > 0 for n in TRAIN_KERNELS),
+                f"the {label} step did not launch every decode-attention kernel")
+        with ExitStack() as stack:
+            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk, decode_att)
+            _build.reset_launches()
+            p_loss, p_grads = step_grads(dtype)
+            require(not any(_build.LAUNCHES.values()), "the plain step launched a kernel")
+        rel = {n: ((k_grads[n] - p_grads[n]).abs().max()
+                   / p_grads[n].abs().max().clamp_min(1e-30)).item() for n in p_grads}
+        loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+        worst = max(rel, key=rel.get)
+        by_group = {g: max(v for n, v in rel.items() if n.startswith(g))
+                    for g in GRAD_PREFIXES}
+        grad_agreement[label] = (loss_rel, rel[worst])
+        log(f"train: {label} step on B={TRAIN_BATCH}, kernels against plain versions: "
+            f"loss {k_loss:.6f} vs {p_loss:.6f} (rel {loss_rel:.3g}); max |grad diff| / "
+            f"max |plain grad| by group {{{', '.join(f'{g}: {v:.3g}' for g, v in by_group.items())}}}, "
+            f"worst {worst} {rel[worst]:.3g} (tolerance {tol:g})")
+        require(loss_rel <= tol and rel[worst] <= tol,
+                f"{label} training step: kernels disagree with the plain versions")
+
+    # -- 9. train timing at the JAX package's MTL batch ---------------------
+    with torch.inference_mode():
+        vp, pool, w, qp, k = att_inputs(TRAIN_TIME_BATCH, "bf16-int8")
+        fwd_args = (vp, pool, w, qp, k, ATT_SEED, ATT_STEP)
+        fkw = dict(objs=OBJS, att_scale=ATT_SCALE, thresh=ATT_THRESH)
+        times["decode_att_fwd"] = time_pair(
+            lambda: decode_att.decode_att_fwd(*fwd_args, **fkw),
+            lambda: decode_att.decode_att_fwd_reference(*fwd_args, **fkw), 10)
+        att, att_v = decode_att.decode_att_fwd(*fwd_args, **fkw)
+        att_ops = 2.0 * TRAIN_TIME_BATCH * OBJS * (HIDDEN + V_DIM)
+        bounds["decode_att_fwd"] = bound(nbytes(vp, pool, w, qp, k, att, att_v), att_ops, "f32")
+        g_attv = torch.randn(TRAIN_TIME_BATCH, V_DIM, device=dev, generator=gen).to(bf16)
+        bwd_args = (vp, pool, w, att, g_attv, ATT_SEED, ATT_STEP)
+        bkw = dict(objs=OBJS, thresh=ATT_THRESH)
+        times["decode_att_bwd"] = time_pair(
+            lambda: decode_att.decode_att_bwd(*bwd_args, **bkw),
+            lambda: decode_att.decode_att_bwd_reference(*bwd_args, **bkw), 10)
+        bounds["decode_att_bwd"] = bound(
+            nbytes(vp, pool, w, att, g_attv, *decode_att.decode_att_bwd(*bwd_args, **bkw)),
+            att_ops, "f32")
+        steps = C_LEN - 1
+        dls = (torch.randn(steps, TRAIN_TIME_BATCH, OBJS, device=dev, generator=gen)
+               * 0.01).to(bf16)
+        qps = torch.rand(steps, TRAIN_TIME_BATCH, HIDDEN, device=dev, generator=gen).to(bf16)
+        dkw = dict(objs=OBJS, att_scale=ATT_SCALE, thresh=ATT_THRESH, out_dtype=bf16)
+        times["decode_att_dvp"] = time_pair(
+            lambda: decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **dkw),
+            lambda: decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED, **dkw), 3)
+        bounds["decode_att_dvp"] = bound(
+            nbytes(dls, qps, k, decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **dkw)),
+            2.0 * steps * TRAIN_TIME_BATCH * OBJS * HIDDEN, "f32")
+        del vp, pool, w, qp, k, att, att_v, g_attv, dls, qps
+    for name in TRAIN_KERNELS:
+        log(f"time {name} B={TRAIN_TIME_BATCH} bf16 over the int8 payload, dropout "
+            f"0.2: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
+
+    x_q, scale = int8_feed(TRAIN_TIME_BATCH * OBJS, V_DIM)
+    big = {"q": torch.randint(0, NTOKEN, (TRAIN_TIME_BATCH, Q_LEN), device=dev, generator=gen),
+           "a": (torch.randint(0, 4, (TRAIN_TIME_BATCH, ANS), device=dev, generator=gen)
+                 * (torch.rand(TRAIN_TIME_BATCH, ANS, device=dev, generator=gen) < 2e-3)) / 3.0,
+           "c": torch.randint(0, NTOKEN - 4, (TRAIN_TIME_BATCH, C_LEN), device=dev, generator=gen),
+           "cap_len": torch.full((TRAIN_TIME_BATCH,), C_LEN, device=dev),
+           "img_q": x_q.view(TRAIN_TIME_BATCH, OBJS, V_DIM),
+           "img_scale": scale.view(TRAIN_TIME_BATCH, OBJS).float()}
+    plain_mtl = set_model(**mtl_dims, use_pallas=False)
+    plain_mtl.load_state_dict(mtl.state_dict())
+    plain_state = TrainState(plain_mtl, make_optimizer(plain_mtl, lr=TRAIN_LR,
+                                                      max_norm=TRAIN_CLIP), seed=RUN_SEED)
+    plain_step = make_train_step(plain_mtl, plain_state.optimizer, compute_dtype=bf16)
+    peaks = {}
+    for label, run in (("kernels", lambda: train_step(state, big)),
+                       ("plain", lambda: plain_step(plain_state, big))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peaks[label] = (torch.cuda.max_memory_allocated(), base)
+    step_k, step_p = time_pair(lambda: train_step(state, big),
+                               lambda: plain_step(plain_state, big), 2)
+    gb = lambda x: x / 2 ** 30
+    log(f"time train step B={TRAIN_TIME_BATCH} c_len={C_LEN} ({C_LEN - 1} decoder "
+        f"steps), int8 feed, bf16 over f32 masters, dropout 0.5/0.2: kernels "
+        f"{step_k:.2f} ms ({TRAIN_TIME_BATCH / step_k * 1e3:.1f} samples/s), plain "
+        f"(use_pallas=False) {step_p:.2f} ms ({TRAIN_TIME_BATCH / step_p * 1e3:.1f} "
+        f"samples/s); peak memory allocated: kernels {gb(peaks['kernels'][0]):.2f} GiB "
+        f"({gb(peaks['kernels'][0] - peaks['kernels'][1]):.2f} above the "
+        f"{gb(peaks['kernels'][1]):.2f} held before the step), plain "
+        f"{gb(peaks['plain'][0]):.2f} GiB ({gb(peaks['plain'][0] - peaks['plain'][1]):.2f} "
+        f"above {gb(peaks['plain'][1]):.2f}) [{card}]")
+    if args.profile:
+        profile_run("training step", lambda: train_step(state, big), C_LEN - 1)
+
+    paths = {"vqa": launches, "decode": dec_launches, "train": train_launches}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
-                "launches": (dec_launches if name == "vocab_topk_lse"
-                             else launches)[name],
+                "launches": paths[MAIN_PATH[name]][name],
                 "launches_by_path": {p: n[name] for p, n in paths.items()},
                 "max_abs_err": max_err[name],
-                "ms": times[name][0], "plain_ms": times[name][1]}
+                "ms": times[name][0], "plain_ms": times[name][1],
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                # no single PyTorch call computes any of these functions
+                "library_ms": None}
                for name in KERNELS]
     print(card)
     print(json.dumps({"kernels": entries}))

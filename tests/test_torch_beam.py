@@ -72,7 +72,7 @@ def twins(decoder_type: str, att_type: str = "new", end_bias: float = 1.0):
     head = "h2_fcnet" if decoder_type == "butd" else "fcnet"
     params["generator"][head]["b"] = params["generator"][head]["b"].copy()
     params["generator"][head]["b"][vocab().end] += end_bias
-    port = set_model(**dims)
+    port = set_model(**dims, device="cpu")
     port.load_state_dict(flax_to_state_dict(params))
     return jm, params, port.eval()
 
@@ -153,7 +153,7 @@ def test_int8_feed_v_matches_jax(rng, att_type, scale_dtype):
     vqa_only = set_model(encoder_type="base", predictor_type="base",
                          decoder_type="none", ntoken=NTOKEN, v_dim=V_DIM,
                          embed_dim=EMBED, hidden_dim=HIDDEN, ans_dim=5,
-                         att_type=att_type).eval()
+                         att_type=att_type, device="cpu").eval()
     with torch.no_grad():
         out = vqa_only.encoder(tb)
     assert "v" not in out and "v_sum" in out

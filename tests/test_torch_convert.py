@@ -42,7 +42,8 @@ def test_convert_round_trips_and_models_agree(rng, att_type, cls_layer,
     params = jax.tree_util.tree_map(
         np.asarray, jm.init(jax.random.key(7), jbatch)["params"])
 
-    port = set_model(**dims, generator=torch.Generator().manual_seed(7))
+    port = set_model(**dims, generator=torch.Generator().manual_seed(7),
+                     device="cpu")
     port.load_state_dict(flax_to_state_dict(params))   # strict: every key
     back, unmapped = import_reference_state_dict(port.state_dict())
     assert unmapped == []
@@ -91,7 +92,7 @@ def test_convert_round_trips_caption_models(rng, decoder_type, predictor_type,
     cell = "language_rnn" if decoder_type == "butd" else "rnn"
     gates = 3 if rnn_type == "GRU" else 4
     assert sd[f"generator.{cell}.weight_hh"].shape == (gates * 24, 24)
-    port = set_model(**dims)
+    port = set_model(**dims, device="cpu")
     port.load_state_dict(sd)                          # strict: every key
     back, unmapped = import_reference_state_dict(port.state_dict())
     assert unmapped == []

@@ -190,7 +190,7 @@ def test_forward_cap_matches_jax(rng, decoder_type, att_type, predictor_type,
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jm = jax_set_model(**dims)
     params = jm.init(jax.random.key(4), jb)["params"]
-    port = set_model(**dims)
+    port = set_model(**dims, device="cpu")
     port.load_state_dict(flax_to_state_dict(
         jax.tree_util.tree_map(np.asarray, params)))
     port.eval()

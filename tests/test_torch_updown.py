@@ -56,7 +56,7 @@ def twins(rng, use_pallas: bool, bf16: bool):
     jm = jax_set_model(**DIMS, use_pallas=use_pallas)
     jb, _ = batches(rng, "dense")
     params = jm.init(jax.random.key(0), jb)["params"]
-    port = set_model(**DIMS, use_pallas=use_pallas)
+    port = set_model(**DIMS, use_pallas=use_pallas, device="cpu")
     port.load_state_dict(flax_to_state_dict(
         jax.tree_util.tree_map(np.asarray, params)))
     if bf16:
@@ -146,4 +146,4 @@ def test_set_model_rejects_what_the_slice_does_not_hold(override):
     with pytest.raises(NotImplementedError,
                        match="int8_matmul" if "use_int8" in override
                        else "not ported yet"):
-        set_model(**{**DIMS, **override})
+        set_model(**{**DIMS, **override}, device="cpu")

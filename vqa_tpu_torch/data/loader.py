@@ -1,0 +1,148 @@
+"""Host-side batch feed with background prefetch (counterpart of
+``vqa_tpu/data/loader.py`` ``Loader``, without multi-host sharding).
+
+- Fixed shapes: every batch has exactly ``batch_size`` rows; a short tail
+  batch repeats its first row and carries ``nvalid``.
+- Vectorized assembly: the dataset's ``get_batch`` gathers a whole batch.
+- Pipelined: a background thread assembles the next batches.
+- Caption length bucketing (``length_bucket``): samples whose ``cap_len``
+  falls in the same bucket form a batch whose caption axis is cut to the
+  bucket's bound + 1, so the decoder's scan runs fewer steps. Every dropped
+  step is masked out of the loss either way.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+
+
+class Loader:
+    """Iterable over fixed-shape numpy batches with shuffle + prefetch."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 seed: int = 1111, drop_last: bool = False, prefetch: int = 2,
+                 transform: Optional[Callable[[Dict[str, np.ndarray]],
+                                              Dict[str, np.ndarray]]] = None,
+                 length_bucket: bool = False,
+                 bucket_bounds: tuple = (8, 12, 16, 20)):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.transform = transform
+        self.length = len(dataset)
+        self.length_bucket = length_bucket
+        self.bucket_bounds = tuple(sorted(bucket_bounds))
+        if length_bucket:
+            if getattr(dataset, "cap_lens", None) is None:
+                raise ValueError("length_bucket needs dataset.cap_lens "
+                                 "(a caption dataset)")
+            # the top bucket must cover the longest caption, or its real
+            # tokens would be cut by the truncation
+            max_len = int(np.max(np.asarray(dataset.cap_lens)[:self.length]))
+            if self.bucket_bounds[-1] < max_len:
+                self.bucket_bounds = tuple(
+                    sorted(set(self.bucket_bounds) | {max_len}))
+
+    def __len__(self) -> int:
+        if self.length_bucket:
+            counts = self._bucket_counts()
+            if self.drop_last:
+                return sum(c // self.batch_size for c in counts)
+            return sum(-(-c // self.batch_size) for c in counts if c)
+        if self.drop_last:
+            return self.length // self.batch_size
+        return -(-self.length // self.batch_size)
+
+    def _bucket_of(self, lens: np.ndarray) -> np.ndarray:
+        """Index of the first bound >= len (longer lengths share the last)."""
+        bounds = np.asarray(self.bucket_bounds)
+        return np.minimum(np.searchsorted(bounds, lens), len(bounds) - 1)
+
+    def _bucket_counts(self):
+        which = self._bucket_of(np.asarray(self.dataset.cap_lens)[:self.length])
+        return [int(np.sum(which == b)) for b in range(len(self.bucket_bounds))]
+
+    def _finish(self, idx: np.ndarray, nvalid: int, bound: Optional[int]):
+        batch = self.dataset.get_batch(list(idx))
+        batch["nvalid"] = np.int32(nvalid)
+        # keep one padded position beyond the bound, as the JAX package
+        # does (its caption-reading predictors need it)
+        if bound is not None and "c" in batch \
+                and bound + 1 < batch["c"].shape[1]:
+            batch["c"] = batch["c"][:, :bound + 1]
+        return self.transform(batch) if self.transform is not None else batch
+
+    def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = (self.rng.permutation(self.length) if self.shuffle
+                 else np.arange(self.length))
+        plan = []                               # (idx [batch_size], nvalid, bound)
+        if self.length_bucket:
+            which = self._bucket_of(np.asarray(self.dataset.cap_lens)[order])
+            groups = [(order[which == b], bound)
+                      for b, bound in enumerate(self.bucket_bounds)]
+        else:
+            groups = [(order, None)]
+        for members, bound in groups:
+            for start in range(0, len(members), self.batch_size):
+                idx = members[start:start + self.batch_size]
+                nvalid = len(idx)
+                if nvalid < self.batch_size:
+                    if self.drop_last:
+                        continue
+                    idx = np.concatenate(
+                        [idx, np.full(self.batch_size - nvalid, idx[0])])
+                plan.append((idx, nvalid, bound))
+        if self.length_bucket and self.shuffle:    # interleave the buckets
+            self.rng.shuffle(plan)
+        for idx, nvalid, bound in plan:
+            yield self._finish(idx, nvalid, bound)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        """Iterate with background prefetch (a daemon thread and a bounded
+        queue). Abandoning the iterator stops the producer."""
+        if self.prefetch <= 0:
+            yield from self._batches()
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        error = []
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for b in self._batches():
+                    if not put(b):
+                        return
+            except BaseException as e:   # surface worker errors to the consumer
+                error.append(e)
+            finally:
+                put(sentinel)
+
+        threading.Thread(target=producer, daemon=True).start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    if error:
+                        raise error[0]
+                    return
+                yield item
+        finally:
+            stop.set()

@@ -28,7 +28,9 @@ class BaseEncoder(nn.Module):
 
     ``use_pallas`` routes inference through the hand-written kernels: the
     question GRU (see :class:`SentenceEmbedding`) and, on a bf16 int8 feed,
-    the dequant-GEMM v-projection and the lazy-v pooling.
+    the dequant-GEMM v-projection and the lazy-v pooling. Those kernels have
+    no backward: in training mode the plain versions run, with dropout
+    active, as in the JAX package.
 
     On the int8 feed the outputs follow their readers: ``with_v_sum`` (a
     VQA predictor reads the pooled ``v_sum``) and ``with_v`` (a caption
@@ -101,7 +103,9 @@ class BaseEncoder(nn.Module):
         # the dequantized features, only where a reader needs them dense
         v = (img_q.to(img_scale.dtype) * img_scale[..., None]
              if concat or self.with_v else None)
-        if concat:
+        if concat or (v is not None and not use_kernel):
+            # the same product as project_v_int8's plain path, from the
+            # features already formed (the JAX package's training path)
             v_att = self.attention(v, q)
         else:
             vp = self.attention.project_v_int8(img_q, img_scale, use_kernel)

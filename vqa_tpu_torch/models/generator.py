@@ -12,6 +12,12 @@ once per batch by ``project_v`` and passed to every step as ``att_cache``.
 The teacher-forced forward runs all ``max_len - 1`` steps for the whole
 batch and masks the positions past each caption's length.
 
+Training goes through ``caption_loss``: the masked caption CE with the
+vocab head run once on the stacked step features, in row chunks. The BUTD
+decoder with GRU cells and MultiplyAttention (the MTL configuration) runs
+its steps through the custom-backward scan of ``ops/decode_scan.py``, whose
+attention goes to the decode-attention kernels with ``pallas_att``.
+
 Init quirks kept from the reference: BaseDecoder's vocab head is
 U(-0.1, 0.1) with a zero bias; BUTDDecoder's heads keep torch's default
 Linear init. Parameters carry the reference's torch names (``word_rnn``
@@ -25,8 +31,10 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from vqa_tpu_torch.ops.attention import set_att
+from vqa_tpu_torch.ops.decode_scan import SCAN_PARAMS, make_butd_caption_scan
 from vqa_tpu_torch.ops.linear import uniform_
 from vqa_tpu_torch.ops.rnn import RNNCell
 
@@ -62,15 +70,23 @@ class DecoderBase(nn.Module):
     """The teacher-forced loop and the helpers both decoders share."""
 
     h_num = 1
+    # one chunk's logits stay under this many bytes in the caption CE: its
+    # logits and their gradient coexist in the backward
+    CE_CHUNK_BYTES = 1 << 30
 
     def __init__(self, ntoken: int, v_dim: int, hidden_dim: int,
                  max_len: int, dropout: float, rnn_type: str, att_type: str,
-                 att_dropout: float, generator: Optional[torch.Generator]):
+                 att_dropout: float, generator: Optional[torch.Generator],
+                 pallas_att: bool = False):
         super().__init__()
         self.ntoken = ntoken
         self.hidden_dim = hidden_dim
         self.max_len = max_len
         self.rnn_type = rnn_type
+        self.att_type = att_type
+        self.dropout = dropout
+        self.att_dropout = att_dropout
+        self.pallas_att = pallas_att
         att_kwargs = {"dropout": att_dropout} if att_type == "new" else {}
         self.attention = set_att(att_type)(v_dim, hidden_dim, hidden_dim,
                                            generator=generator, **att_kwargs)
@@ -78,6 +94,11 @@ class DecoderBase(nn.Module):
 
     def vocab_head(self) -> Dense:
         raise NotImplementedError
+
+    def hoisted_gates(self, v_mean: torch.Tensor, prev_dim: int):
+        """The input gates of the step-invariant input rows (BUTD's
+        ``v_mean``); None where a decoder has none."""
+        return None
 
     def init_hidden(self, batch_size: int, dtype: torch.dtype,
                     device: Optional[torch.device] = None) -> List:
@@ -109,8 +130,100 @@ class DecoderBase(nn.Module):
         return att, torch.sum(att * v, dim=1)
 
     def decode(self, v, v_mean, prev, h, *, att_cache=None, beam: int = 1,
-               return_features: bool = False):
+               return_features: bool = False, v_gate_cache=None):
         raise NotImplementedError
+
+    def caption_loss(self, embed: Dict[str, torch.Tensor], *,
+                     seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Teacher-forced masked caption CE (``forward`` +
+        ``wrapper.ce_for_language_model`` in one), dropout active in
+        training mode.
+
+        The steps emit their pre-logit features; the vocab head and the CE
+        run once on the stacked [B, steps, H] after them
+        (``_vocab_ce_sum``). The attention's v-projection and the word RNN's
+        v_mean gates are computed once. The time axis follows ``embed['c']``,
+        so a length-bucketed batch runs fewer steps for the same loss.
+        ``seed``: the scan's 32-bit dropout seed (drawn from torch's CPU
+        generator when None). Returns {'loss', 'mask_sum'}.
+        """
+        v, caption = embed["v"], embed["c"]
+        steps = caption.shape[1] - 1
+        v_mean = torch.mean(v, dim=1)
+        h = self.init_hidden(v.shape[0], v.dtype, v.device)
+        att_cache = self.project_v(v)
+        v_gates = self.hoisted_gates(v_mean, caption.shape[-1])
+        acc_dtype = torch.promote_types(v.dtype, torch.float32)
+        mask = (torch.arange(steps, device=v.device)[None, :]
+                < (embed["cap_len"][:, None] - 1)).to(acc_dtype)
+        prev_seq = caption[:, :steps]
+        if self._fused_scan_ok(v_gates):
+            if seed is None:
+                seed = int(torch.randint(0, 1 << 32, (), dtype=torch.int64))
+            factored = "v_q8" in embed
+            scan_fn, _ = make_butd_caption_scan(
+                hidden_dim=self.hidden_dim, v_dim=v.shape[-1],
+                dropout=self.dropout, att_dropout=self.att_dropout,
+                deterministic=not self.training, factored_v=factored,
+                pallas_att=self.pallas_att)
+            P = {n: _attr(self, n) for n in SCAN_PARAMS}
+            vis = ((embed["v_q8"], embed["v_w"].to(v.dtype)) if factored
+                   else (v,))
+            feats = scan_fn(P, *vis, att_cache, v_gates, prev_seq, h[0], h[1],
+                            seed).transpose(0, 1)
+        else:
+            outs = []
+            for t in range(steps):
+                h, feat, _ = self.decode(v, v_mean, prev_seq[:, t], h,
+                                         att_cache=att_cache,
+                                         return_features=True,
+                                         v_gate_cache=v_gates)
+                outs.append(feat)
+            feats = torch.stack(outs, dim=1)
+        target = embed["c_target"][:, 1:steps + 1]
+        nll_sum = self._vocab_ce_sum(feats, target, mask, acc_dtype)
+        mask_sum = mask.sum()
+        return {"loss": nll_sum / torch.clamp(mask_sum, min=1.0),
+                "mask_sum": mask_sum}
+
+    def _fused_scan_ok(self, v_gates) -> bool:
+        """The custom-backward scan covers the MTL decoder: BUTD (two GRU
+        cells, signalled by a hoisted gate cache) with MultiplyAttention."""
+        return (self.h_num == 2 and self.rnn_type == "GRU"
+                and self.att_type == "new" and v_gates is not None)
+
+    def _ce_rows(self, feats: torch.Tensor, target: torch.Tensor,
+                 mask: torch.Tensor, acc_dtype: torch.dtype) -> torch.Tensor:
+        """sum over rows of mask * (lse(head(feat)) - logit[target]), in
+        ``acc_dtype`` (>= f32); the log-softmax array is never formed."""
+        logits = self.vocab_head()(feats)                    # [rows, V]
+        m = torch.amax(logits, dim=-1, keepdim=True).detach().to(acc_dtype)
+        lse = m[..., 0] + torch.log(torch.sum(
+            torch.exp(logits.to(acc_dtype) - m), dim=-1))
+        tgt = torch.gather(logits, -1, target[..., None].long())[..., 0]
+        return torch.sum((lse - tgt.to(acc_dtype)) * mask)
+
+    def _vocab_ce_sum(self, feats: torch.Tensor, target: torch.Tensor,
+                      mask: torch.Tensor, acc_dtype: torch.dtype
+                      ) -> torch.Tensor:
+        """Masked CE sum over [B, T] rows with the logits' memory bounded:
+        where one pass's [B * T, V] logits would pass ``CE_CHUNK_BYTES``,
+        the rows go in chunks, each checkpointed, so the backward
+        recomputes one chunk's logits at a time."""
+        rows = feats.shape[0] * feats.shape[1]
+        feats = feats.reshape(rows, -1)
+        target, mask = target.reshape(rows), mask.reshape(rows)
+        n = max(1, -(-(rows * self.ntoken * feats.element_size())
+                     // self.CE_CHUNK_BYTES))
+        if n == 1:
+            return self._ce_rows(feats, target, mask, acc_dtype)
+        rc = -(-rows // n)
+        total = torch.zeros((), dtype=acc_dtype, device=feats.device)
+        for sl in range(0, rows, rc):
+            total = total + checkpoint(
+                self._ce_rows, feats[sl:sl + rc], target[sl:sl + rc],
+                mask[sl:sl + rc], acc_dtype, use_reentrant=False)
+        return total
 
     def forward(self, embed: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -149,9 +262,11 @@ class BaseDecoder(DecoderBase):
                  hidden_dim: int, max_len: int, dropout: float = 0.5,
                  rnn_type: str = "GRU", att_type: str = "base",
                  att_dropout: float = 0.2, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pallas_att: bool = False):
         super().__init__(ntoken, v_dim, hidden_dim, max_len, dropout,
-                         rnn_type, att_type, att_dropout, generator)
+                         rnn_type, att_type, att_dropout, generator,
+                         pallas_att)
         self.rnn = RNNCell(embed_dim + v_dim, hidden_dim, rnn_type,
                            generator=generator)
         self.fcnet = Dense(hidden_dim, ntoken, bound=0.1, zero_bias=True,
@@ -161,11 +276,13 @@ class BaseDecoder(DecoderBase):
         return self.fcnet
 
     def decode(self, v, v_mean, prev, h, *, att_cache=None, beam: int = 1,
-               return_features: bool = False):
+               return_features: bool = False, v_gate_cache=None):
         """One step: attend with h, feed [prev; att_v] to the cell. Returns
         (h, logits [B, ntoken] or, with ``return_features``, the vocab head's
         input [B, H], att). ``beam``: see :meth:`DecoderBase._attend`."""
         del v_mean   # the single-cell decoder has no v_mean input
+        if v_gate_cache is not None:
+            raise ValueError("BaseDecoder has no step-invariant cell input")
         att, att_v = self._attend(v, _out(h[0]), att_cache, beam)
         state = self.rnn(h[0], torch.cat([prev, att_v], dim=1))
         feat = self.drop(_out(state))
@@ -181,9 +298,11 @@ class BUTDDecoder(DecoderBase):
                  hidden_dim: int, max_len: int, dropout: float = 0.5,
                  rnn_type: str = "GRU", att_type: str = "base",
                  att_dropout: float = 0.2, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pallas_att: bool = False):
         super().__init__(ntoken, v_dim, hidden_dim, max_len, dropout,
-                         rnn_type, att_type, att_dropout, generator)
+                         rnn_type, att_type, att_dropout, generator,
+                         pallas_att)
         self.word_rnn = RNNCell(hidden_dim + v_dim + embed_dim, hidden_dim,
                                 rnn_type, generator=generator)
         self.language_rnn = RNNCell(v_dim + hidden_dim, hidden_dim, rnn_type,
@@ -194,12 +313,27 @@ class BUTDDecoder(DecoderBase):
     def vocab_head(self) -> Dense:
         return self.h2_fcnet
 
+    def hoisted_gates(self, v_mean: torch.Tensor, prev_dim: int):
+        """The word RNN's input gates of its v_mean rows, which no step
+        changes: ``v_mean @ weight_ih[:, H:H + v_dim].T`` (no bias). The
+        input GEMM splits exactly over the concatenation's row blocks."""
+        hd, vd = self.hidden_dim, v_mean.shape[-1]
+        return self.word_rnn(None, v_mean, rows=(hd, hd + vd),
+                             gates_only=True)
+
     def decode(self, v, v_mean, prev, h, *, att_cache=None, beam: int = 1,
-               return_features: bool = False):
+               return_features: bool = False, v_gate_cache=None):
         """word RNN -> h1 FC -> attention -> language RNN -> vocab logits.
-        ``beam``/``return_features``: see :meth:`BaseDecoder.decode`."""
+        ``beam``/``return_features``: see :meth:`BaseDecoder.decode`;
+        ``v_gate_cache``: the precomputed :meth:`hoisted_gates`."""
         h1, h2 = h
-        h1 = self.word_rnn(h1, torch.cat([_out(h2), v_mean, prev], dim=1))
+        if v_gate_cache is not None:
+            hd, vd, pd = self.hidden_dim, v_mean.shape[-1], prev.shape[-1]
+            h1 = self.word_rnn(h1, torch.cat([_out(h2), prev], dim=1),
+                               rows=[(0, hd), (hd + vd, hd + vd + pd)],
+                               extra_xi=v_gate_cache)
+        else:
+            h1 = self.word_rnn(h1, torch.cat([_out(h2), v_mean, prev], dim=1))
         hq = self.h1_fcnet(self.drop(_out(h1)))
         att, att_v = self._attend(v, hq, att_cache, beam)
         h2 = self.language_rnn(h2, torch.cat([att_v, hq], dim=1))
@@ -209,16 +343,26 @@ class BUTDDecoder(DecoderBase):
 
 def set_decoder(decoder_type: str, ntoken: int, hidden_dim: int,
                 max_len: int, dropout: float = 0.5, rnn_type: str = "GRU",
-                att_type: str = "base", att_dropout: float = 0.2, *,
-                v_dim: int, embed_dim: int,
+                att_type: str = "base", att_dropout: float = 0.2,
+                pallas_att: bool = False, *, v_dim: int, embed_dim: int,
                 generator: Optional[torch.Generator] = None
                 ) -> Optional[DecoderBase]:
     """String-keyed decoder factory (generator.py:501-516). The port's cells
     declare their input widths, so it also takes ``v_dim`` and
-    ``embed_dim``."""
+    ``embed_dim``. ``pallas_att`` sends the training scan's attention to
+    the decode-attention kernels."""
     if decoder_type == "none":
         return None
     cls = {"base": BaseDecoder, "butd": BUTDDecoder}[decoder_type]
     return cls(ntoken, v_dim, embed_dim, hidden_dim, max_len,
                dropout=dropout, rnn_type=rnn_type, att_type=att_type,
-               att_dropout=att_dropout, generator=generator)
+               att_dropout=att_dropout, generator=generator,
+               pallas_att=pallas_att)
+
+
+def _attr(module: nn.Module, name: str) -> torch.Tensor:
+    """The tensor at a dotted attribute path (also under
+    ``torch.func.functional_call``, which swaps parameters for tensors)."""
+    for part in name.split("."):
+        module = getattr(module, part)
+    return module

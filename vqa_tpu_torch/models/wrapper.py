@@ -1,9 +1,11 @@
 """Model composition and the VQA metric and loss (counterpart of
 ``vqa_tpu/models/wrapper.py``).
 
-The port holds the Up-Down inference paths: the base encoder with the base
-VQA predictor, the Base/BUTD caption decoders, or both. ``set_model`` raises
-``NotImplementedError`` for every type or option outside them.
+The port holds the Up-Down paths: the base encoder with the base VQA
+predictor, the Base/BUTD caption decoders, or both, for inference and for
+training through ``get_loss`` (the MTL uncertainty weighting with both
+heads). ``set_model`` raises ``NotImplementedError`` for every type or
+option outside them.
 """
 
 from __future__ import annotations
@@ -44,18 +46,34 @@ def instance_bce_with_logits(predict: torch.Tensor,
     return loss * predict.shape[1]
 
 
+def ce_for_language_model(predict: torch.Tensor, target: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Masked token cross-entropy, the mean over valid positions
+    (wrapper.py:68-79): predict [B, T, ntoken], target [B, T], mask [B, T];
+    ``lse - logit[target]`` in at least f32."""
+    predict = _at_least_f32(predict)
+    lse = torch.logsumexp(predict, dim=-1)
+    tgt = torch.gather(predict, -1, target[..., None].long())[..., 0]
+    return torch.sum((lse - tgt) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 class VQAModel(nn.Module):
     """Encoder + optional VQA predictor + optional caption generator
     (reference wrapper.py:39-123). With both heads and ``use_mtl`` it holds
-    the MTL uncertainty weights ``log_vars`` [2]."""
+    the MTL uncertainty weights ``log_vars`` [2]. ``fused_cap_loss``: the
+    caption loss of ``get_loss`` goes through the decoder's
+    ``caption_loss`` (the vocab head after the steps, in chunks), else the
+    teacher-forced forward and ``ce_for_language_model``."""
 
     def __init__(self, encoder: nn.Module, predictor: Optional[nn.Module] = None,
-                 generator: Optional[nn.Module] = None, use_mtl: bool = False):
+                 generator: Optional[nn.Module] = None, use_mtl: bool = False,
+                 fused_cap_loss: bool = True):
         super().__init__()
         self.encoder = encoder
         self.predictor = predictor
         self.generator = generator
         self.use_mtl = use_mtl
+        self.fused_cap_loss = fused_cap_loss
         if self.mtl_active:
             self.log_vars = nn.Parameter(torch.zeros(2))
 
@@ -75,6 +93,40 @@ class VQAModel(nn.Module):
         caption = self.generator(embed) if self.generator is not None else None
         predict = self.predictor(embed) if self.predictor is not None else None
         return predict, caption
+
+    def get_loss(self, batch: Dict[str, torch.Tensor], *,
+                 seed: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The joint training loss and its metrics (wrapper.py:114-152):
+        ``train/loss`` (VQA BCE), ``train/score`` (summed soft score) and
+        ``train/cap/loss`` (caption CE), as device tensors. With ``log_vars``
+        the loss is ``sum_i exp(-s_i) L_i + s_i``. Dropout follows the
+        module's mode; ``seed`` is the caption scan's dropout seed."""
+        embed = self.encoder(batch)
+        loss_cap = None
+        if self.generator is not None and self.fused_cap_loss:
+            loss_cap = self.generator.caption_loss(embed, seed=seed)["loss"]
+        elif self.generator is not None:
+            caption = self.generator(embed)
+            loss_cap = ce_for_language_model(caption["predict"],
+                                             caption["target"],
+                                             caption["mask"])
+        predict = self.predictor(embed) if self.predictor is not None else None
+        log_vars = self.log_vars if self.mtl_active else None
+        loss = torch.zeros((), dtype=torch.float32, device=embed["q"].device)
+        writes: Dict[str, torch.Tensor] = {}
+        if predict is not None:
+            target = _at_least_f32(batch["a"])
+            loss_vqa = instance_bce_with_logits(predict, target)
+            writes["train/loss"] = loss_vqa
+            writes["train/score"] = torch.sum(compute_score(predict, target))
+            loss = loss + (torch.exp(-log_vars[0]) * loss_vqa + log_vars[0]
+                           if log_vars is not None else loss_vqa)
+        if loss_cap is not None:
+            writes["train/cap/loss"] = loss_cap
+            loss = loss + (torch.exp(-log_vars[1]) * loss_cap + log_vars[1]
+                           if log_vars is not None else loss_cap)
+        return loss, writes
 
     def forward_vqa(self, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -96,6 +148,19 @@ class VQAModel(nn.Module):
         """(predict, v_att) for visualization (wrapper.py:107-110)."""
         embed = self.encoder(batch)
         return self.predictor(embed), embed["v_att"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point of the port runs on: ``device`` where the
+    caller gives one, else the first CUDA device. Without CUDA the caller
+    must ask for the CPU: the port never falls back to it silently."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: pass device='cpu' to run the port "
+            "on the CPU (its kernels then run their plain versions)")
+    return torch.device("cuda", 0)
 
 
 def set_model(encoder_type: str = "base",
@@ -125,11 +190,14 @@ def set_model(encoder_type: str = "base",
               use_pallas: bool = False,
               use_int8: bool = False,
               *,
-              generator: Optional[torch.Generator] = None) -> VQAModel:
-    """Model factory with ``vqa_tpu``'s signature. Parameters are made on the
-    CPU in f32 from ``generator``; the caller moves the model with
-    ``model.to(device, dtype)``. The relation-encoder arguments belong to
-    types the port does not hold yet."""
+              generator: Optional[torch.Generator] = None,
+              device=None) -> VQAModel:
+    """Model factory with ``vqa_tpu``'s signature. Parameters are drawn in
+    f32 on the CPU from ``generator`` (so a seed gives the same weights on
+    any device), then moved to ``device``: ``cuda:0`` unless the caller
+    asks for another, and an error where there is no CUDA device and no
+    ``device`` was given. The relation-encoder arguments belong to types the
+    port does not hold yet."""
     del neg_slope, conv_layer, conv_type, use_spa, use_imp, use_sem
     not_yet = "is not ported yet (ROADMAP.md Queue 1)"
     if encoder_type != "base":
@@ -145,6 +213,7 @@ def set_model(encoder_type: str = "base",
         raise NotImplementedError(
             "use_int8 needs the int8_matmul kernel, which is not ported yet "
             "(ROADMAP.md Queue 2, int8_matmul.py)")
+    target = resolve_device(device)    # fails before any weight is drawn
     encoder = BaseEncoder(ntoken, v_dim, embed_dim, hidden_dim,
                           rnn_layer=rnn_layer, dropout=dropout,
                           rnn_type=rnn_type, att_type=att_type,
@@ -159,6 +228,6 @@ def set_model(encoder_type: str = "base",
     decoder = set_decoder(decoder_type, ntoken, decoder_hidden_dim, c_len,
                           dropout=dropout, rnn_type=rnn_type,
                           att_type=att_type, att_dropout=att_dropout,
-                          v_dim=v_dim, embed_dim=embed_dim,
-                          generator=generator)
-    return VQAModel(encoder, predictor, decoder, use_mtl=use_mtl)
+                          pallas_att=use_pallas, v_dim=v_dim,
+                          embed_dim=embed_dim, generator=generator)
+    return VQAModel(encoder, predictor, decoder, use_mtl=use_mtl).to(target)

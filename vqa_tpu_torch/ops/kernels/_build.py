@@ -32,9 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel since the last reset, by kernel name; a run reads
 # them to show that its path went through the kernels
 LAUNCHES = {"gru_v2": 0, "dequant_matmul": 0, "pool_int8": 0,
-            "vocab_topk_lse": 0}
+            "vocab_topk_lse": 0, "decode_att_fwd": 0, "decode_att_bwd": 0,
+            "decode_att_dvp": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _ENTRY_POINTS = {
     # xi, w_gk, bh, h32 [2, B, H], h16 [2, B, H], B, T, H, stream
     "gru_v2_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -48,6 +49,16 @@ _ENTRY_POINTS = {
                                _I, _I, _I, _I, _I, _P),
     # R, V, k, *tiles_per_split (no stream: a host-side query)
     "vocab_topk_lse_plan": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
+    # vp, pool, w, qp, k, att, att_v, mask, seed, t, B, objs, H, D,
+    # att_scale, thresh, act, pool_kind, stream
+    "decode_att_fwd": (_P,) * 8 + (_U, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                   _P),
+    # vp, pool, w, att, g_attv, d_qp, m, dl, seed, t, B, objs, H, D, thresh,
+    # act, pool_kind, stream
+    "decode_att_bwd": (_P,) * 8 + (_U, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # dls, qps, k, out, seed, T, B, objs, H, att_scale, thresh, act,
+    # out_kind, stream
+    "decode_att_dvp": (_P,) * 4 + (_U, _I, _I, _I, _I, _F, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

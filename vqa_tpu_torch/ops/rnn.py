@@ -90,10 +90,29 @@ class RNNCell(nn.Module):
             self.register_parameter(name, nn.Parameter(
                 uniform_(torch.empty(shape), bound, generator)))
 
-    def forward(self, carry, x: torch.Tensor):
-        """carry, x [B, in] -> the next carry."""
-        xi = torch.matmul(x, self.weight_ih.to(x.dtype).t()) \
-            + self.bias_ih.to(x.dtype)
+    def forward(self, carry, x: torch.Tensor, *, rows=None,
+                extra_xi: Optional[torch.Tensor] = None,
+                gates_only: bool = False):
+        """carry, x [B, in] -> the next carry.
+
+        Row-span mode, which lets a decoder compute the input gates of an
+        input slice that no step changes once per batch: ``rows`` is a
+        (start, end) span, or a list of them, of the concatenated input
+        that ``x`` holds (columns of ``weight_ih``); ``extra_xi`` is added to
+        the input gates (the precomputed contribution of the other rows);
+        ``gates_only`` returns ``x @ weight_ih[:, rows].T`` alone, without
+        bias or step. The parameters stay the same.
+        """
+        w = self.weight_ih
+        if rows is not None:
+            spans = [rows] if isinstance(rows, tuple) else list(rows)
+            w = torch.cat([w[:, a:b] for a, b in spans], dim=1)
+        xi = torch.matmul(x, w.to(x.dtype).t())
+        if gates_only:
+            return xi
+        if extra_xi is not None:
+            xi = xi + extra_xi
+        xi = xi + self.bias_ih.to(x.dtype)
         h = carry if self.rnn_type == "GRU" else carry[0]
         hi = torch.matmul(h, self.weight_hh.to(h.dtype).t()) \
             + self.bias_hh.to(h.dtype)

@@ -1,0 +1,140 @@
+"""Train state and step factories (counterpart of
+``vqa_tpu/training/state.py``).
+
+One training step: the loss through ``VQAModel.get_loss`` with dropout
+active, its gradients, the clip and the grouped Adamax update
+(``training/optim.py``). Mixed precision follows the JAX package, not
+``torch.autocast``: the f32 master parameters are cast to ``compute_dtype``
+inside the loss (``torch.func.functional_call``), so autograd returns f32
+gradients and the optimizer moments stay f32; the float inputs of the batch
+are cast too, and the losses upcast to f32 (``models/wrapper.py``).
+
+Each step's dropout draws from a seed that is a function of (run seed,
+step), as ``fold_in(rng, step)``: torch's generators for the encoder's and
+predictor's dropout, and one 32-bit seed for the caption scan's
+counter-based masks, reused by its backward. The step returns its metrics as
+device tensors and issues no host synchronisation.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from vqa_tpu_torch.models.wrapper import VQAModel
+from vqa_tpu_torch.training.optim import Optimizer
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """SplitMix64's output function (Steele et al., OOPSLA 2014)."""
+    z = (x + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def step_seeds(run_seed: int, step: int) -> Tuple[int, int]:
+    """(torch generator seed, 32-bit caption-scan seed) of one step."""
+    s = _mix64((run_seed & _MASK64) ^ _mix64(step))
+    return s >> 1, _mix64(s ^ 0x5EED0A77) & 0xFFFFFFFF
+
+
+class TrainState:
+    """The f32 model, its optimizer, the number of steps taken and the
+    64-bit run seed."""
+
+    def __init__(self, model: VQAModel, optimizer: Optimizer, seed: int = 1111,
+                 step: int = 0):
+        self.model, self.optimizer = model, optimizer
+        self.seed, self.step = seed, step
+
+
+class _Loss(nn.Module):
+    """``get_loss`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model: VQAModel):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, seed):
+        return self.model.get_loss(batch, seed=seed)
+
+
+def _cast_floats(tree: Dict, dtype: Optional[torch.dtype]) -> Dict:
+    if dtype is None:
+        return dict(tree)
+    return {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+            else v for k, v in tree.items()}
+
+
+def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
+                  compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                  ) -> Dict[str, torch.Tensor]:
+    """The loss of training step ``step`` (dropout active, drawn from (run
+    seed, step)) and its gradients, left in the f32 parameters' ``.grad``.
+    Returns ``loss`` and the ``train/*`` writes of ``get_loss``, detached."""
+    model.train()
+    torch_seed, scan_seed = step_seeds(run_seed, step)
+    params = {"model." + n: p for n, p in model.named_parameters()}
+    dev = next(iter(params.values())).device
+    with torch.random.fork_rng(
+            devices=[dev.index or 0] if dev.type == "cuda" else []):
+        torch.manual_seed(torch_seed)
+        loss, writes = functional_call(
+            _Loss(model), _cast_floats(params, compute_dtype),
+            (_cast_floats(batch, compute_dtype), scan_seed))
+        for p in model.parameters():
+            p.grad = None
+        loss.backward()
+    metrics = {k: v.detach() for k, v in writes.items()}
+    metrics["loss"] = loss.detach()
+    return metrics
+
+
+def make_train_step(model: VQAModel, optimizer: Optimizer,
+                    compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                    ) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
+    """``step(state, batch) -> metrics``: one update of ``state.model``.
+
+    ``batch`` holds device tensors (the Loader's keys); ``compute_dtype``
+    None trains in the parameters' own dtype. Metrics: ``loss`` and the
+    ``train/*`` writes of ``get_loss``, plus ``grad_norm``.
+    """
+
+    def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+        metrics = backward_step(model, batch, state.seed, state.step,
+                                compute_dtype)
+        metrics["grad_norm"] = optimizer.step(state.step)
+        state.step += 1
+        return metrics
+
+    return step
+
+
+def make_eval_step(model: VQAModel) -> Callable:
+    """VQA evaluation: ``batch -> (score [B], label [B], bound [B])``, the
+    soft score of the argmax answer and the best reachable score."""
+
+    def eval_step(batch):
+        model.eval()
+        with torch.inference_mode():
+            score, label, target = model.forward_vqa(batch)
+        return score.sum(dim=1), label, target.max(dim=1).values
+
+    return eval_step
+
+
+def make_infer_step(model: VQAModel) -> Callable:
+    """Batched inference: ``batch -> answer logits [B, ans_dim]``."""
+
+    def infer_step(batch):
+        model.eval()
+        with torch.inference_mode():
+            return model(batch)[0]
+
+    return infer_step
