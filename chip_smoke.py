@@ -5,8 +5,9 @@ Run from the repository root:
 
     python3 chip_smoke.py             # the smoke run
     python3 chip_smoke.py --profile   # and torch.profiler tables of one
-                                      # B=4096 beam decode and one B=4096
-                                      # MTL training step
+                                      # B=4096 beam decode, one B=4096
+                                      # MTL training step and one B=8192
+                                      # ReGAT forward
 
 Phases, each of which raises (exit code 1) on failure:
 
@@ -19,7 +20,10 @@ Phases, each of which raises (exit code 1) on failure:
    regimes (f32 over an f32 or an int8 payload, bf16 over a bf16 payload,
    bf16 over an int8 payload with factored weights), with and without
    dropout, and the keep mask the forward kernel emits equal to
-   ``keep_mask`` bit for bit;
+   ``keep_mask`` bit for bit; the int8 GEMM bit for bit at the ReGAT
+   path's shapes (3-D entry at B=8192 and B=1003, N=1024 and 2048; 2-D
+   entry at the GCN projections' rows and at a ragged M=3001 with bias and
+   ReLU); gcn_chain_fused at B=8192 and 1003 in bf16 and f32;
 4. serve: the full-width Up-Down model (bf16, ``use_pallas=True``, weights
    from a seeded generator) answers a few batches of the int8 feed made by
    the port's data layer (``vqa_tpu_torch.data``), through
@@ -48,7 +52,21 @@ Phases, each of which raises (exit code 1) on failure:
 9. train timing (for information): each decode-attention kernel and its
    plain version at B=4096, and the training step at B=4096 (19 decoder
    steps) with the kernels and on the plain path (``use_pallas=False``), by
-   CUDA events, with its peak device memory.
+   CUDA events, with its peak device memory;
+10. ReGAT: the full-width ReGAT model (spatial corr-GCN, one layer, bf16,
+   ``use_pallas=True``, ``use_int8=True``, seeded weights) answers the
+   serve phase's requests with their spatial graphs (the port's data layer
+   writes them) through ``VQAModel.forward_vqa``: gru_v2, the int8 GEMM
+   (the 3-D entry once, the 2-D entry three times a forward) and
+   gcn_chain_fused must launch, dequant_matmul and pool_int8 must not, and
+   the logits must agree with the same model on plain versions; then once
+   more with ``use_int8=False``, where gcn_chain_fused runs beside
+   dequant_matmul;
+11. ReGAT timing (for information): the int8 GEMM at both entries' path
+   shapes against its plain version and ``torch._int_mm``, gcn_chain_fused,
+   and the ReGAT forward at B=8192 with the kernels, on plain versions and
+   on the bf16 path without ``use_int8`` / ``use_pallas``, with peak
+   memory.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
@@ -141,17 +159,33 @@ GRAD_F32_TOL, GRAD_BF16_TOL = 1e-3, 5e-2
 GRAD_PREFIXES = ("generator.attention.W_v.", "generator.attention.W_q.",
                  "generator.attention.linear.weight_", "generator.word_rnn.",
                  "generator.language_rnn.", "log_vars")
+# ReGAT serving: scripts/bench_regat.py's model (spatial corr-GCN, one
+# layer) with the int8 GEMMs and the kernels, timed at its B=8192
+REGAT_DIMS = dict(encoder_type="relation", predictor_type="base",
+                  decoder_type="none", ntoken=NTOKEN, v_dim=V_DIM,
+                  embed_dim=EMBED, hidden_dim=HIDDEN, ans_dim=ANS,
+                  att_type="new", conv_type="corr", conv_layer=1,
+                  use_spa=True, use_imp=False)
+REGAT_TIME_BATCH = 8192
+# gcn_chain_fused against its plain version. bf16: both sum exact bf16
+# products in f32 in other orders and round twice (o, then out); where two
+# sums straddle a rounding point they are one bf16 ulp apart (2**-7 of the
+# value at most), and an ulp of o or of the softmaxed weights moves an
+# output by at most 2**-8 of the largest value. f32: sum order only.
+GCN_BF16_RTOL, GCN_BF16_ATOL_REL = 2.0 ** -7, 2.0 ** -8
+GCN_F32_RTOL, GCN_F32_ATOL_REL = 1e-5, 1e-5
 # the card's peaks for the bound of each kernel: HBM3 bytes per ms, dense
-# bf16 tensor-core and f32 (non-tensor) operations per ms (NVIDIA's H100 SXM
-# data sheet, at its full power limit of 700 W)
+# bf16 and int8 tensor-core and f32 (non-tensor) operations per ms
+# (NVIDIA's H100 SXM data sheet, at its full power limit of 700 W)
 HBM_BYTES_PER_MS = 3.35e9
-PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9}
+PEAK_OPS_PER_MS = {"bf16": 989e9, "int8": 1979e9, "f32": 67e9}
 
 # kernel-name markers of the kinds a profile sums device time by, first
 # match wins
 PROFILE_KINDS = (
     ("the port's kernels", ("decode_att_", "vocab_topk_", "gru_v2_",
-                            "dequant_matmul_", "pool_int8_")),
+                            "dequant_matmul_", "pool_int8_", "int8_matmul_",
+                            "gcn_chain_")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "Gemm")),
     ("int64 elementwise (the torch Philox of the hidden masks)", ("<long",)),
     ("copies and casts", ("copy",)),
@@ -173,14 +207,25 @@ KERNELS = {
                        "replaces": "vqa_tpu/ops/pallas/decode_att.py:300"},
     "decode_att_dvp": {"source": "vqa_tpu_torch/csrc/decode_att.cu",
                        "replaces": "vqa_tpu/ops/pallas/decode_att.py:403"},
+    "int8_matmul_dequant": {"source": "vqa_tpu_torch/csrc/int8_matmul.cu",
+                            "replaces": "vqa_tpu/ops/pallas/int8_matmul.py:73"},
+    "int8_matmul_dequant_3d": {"source": "vqa_tpu_torch/csrc/int8_matmul.cu",
+                               "replaces": "vqa_tpu/ops/pallas/int8_matmul.py:170"},
+    "gcn_chain_fused": {"source": "vqa_tpu_torch/csrc/gcn_chain.cu",
+                        "replaces": "vqa_tpu/ops/pallas/gcn_chain.py:102"},
 }
 # the kernels each path must launch
 VQA_KERNELS = ("gru_v2", "dequant_matmul", "pool_int8")
 DECODE_KERNELS = ("vocab_topk_lse", "gru_v2", "dequant_matmul")
 TRAIN_KERNELS = ("decode_att_fwd", "decode_att_bwd", "decode_att_dvp")
+# a ReGAT forward: the question GRU, the v-projection (3-D entry), the
+# GCN's three projections (2-D entry), the chain; the launches of each
+REGAT_KERNELS = {"gru_v2": 1, "int8_matmul_dequant_3d": 1,
+                 "int8_matmul_dequant": 3, "gcn_chain_fused": 1}
 # the path whose run gives each kernel's "launches"
 MAIN_PATH = {**{k: "vqa" for k in VQA_KERNELS}, "vocab_topk_lse": "decode",
-             **{k: "train" for k in TRAIN_KERNELS}}
+             **{k: "train" for k in TRAIN_KERNELS},
+             **{k: "regat" for k in REGAT_KERNELS if k != "gru_v2"}}
 
 
 def log(msg: str) -> None:
@@ -228,7 +273,7 @@ def bound(nbytes_: int, ops: float, kind: str):
 
 
 def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool,
-                  vocab_topk, decode_att) -> None:
+                  vocab_topk, decode_att, int8_matmul, gcn_chain) -> None:
     """Swap each kernel wrapper for its plain version while ``stack`` is open."""
     stack.enter_context(mock.patch.object(
         gru_v2, "gru_last_state_v2", gru_v2.gru_last_state_v2_reference))
@@ -241,6 +286,11 @@ def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool,
     for name in TRAIN_KERNELS:
         stack.enter_context(mock.patch.object(
             decode_att, name, getattr(decode_att, name + "_reference")))
+    for name in ("int8_matmul_dequant", "int8_matmul_dequant_3d"):
+        stack.enter_context(mock.patch.object(
+            int8_matmul, name, getattr(int8_matmul, name + "_reference")))
+    stack.enter_context(mock.patch.object(
+        gcn_chain, "gcn_chain_fused", gcn_chain.gcn_chain_reference))
 
 
 def compare_beams(name: str, got, want, start_id: int) -> float:
@@ -303,7 +353,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vqa_tpu_torch.ops.kernels import (
-        _build, decode_att, feed_gemm, gru_v2, lazyv_pool, vocab_topk)
+        _build, decode_att, feed_gemm, gcn_chain, gru_v2, int8_matmul,
+        lazyv_pool, vocab_topk)
+    from vqa_tpu_torch.ops.quant import quantize_weight_per_col
     from vqa_tpu_torch.models.wrapper import set_model
     from vqa_tpu_torch.tools.beam import make_beam_search, tokens_to_captions
     from vqa_tpu_torch.training.optim import make_optimizer
@@ -332,8 +384,10 @@ def main() -> int:
     log(f"build: {lib_path.name} in {time.monotonic() - t0:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     max_err = {}
+    kernel_modules = (gru_v2, feed_gemm, lazyv_pool, vocab_topk, decode_att,
+                      int8_matmul, gcn_chain)
 
     def int8_feed(rows: int, k: int):
         x_q = torch.randint(-127, 128, (rows, k), device=dev, generator=gen,
@@ -475,6 +529,56 @@ def main() -> int:
               decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED, **kw),
               f"T={steps} d_vp")
 
+    def int8_inputs(rows: int, n: int, xs_dtype, with_bias: bool):
+        """The int8 GEMM's operands at a path shape: int8 rows with per-row
+        scales (the feed's bf16 ones, or quantize_rows' f32 ones), a
+        weight-normed-scale kernel quantized per column, a bf16 bias."""
+        x_q, scale = int8_feed(rows, V_DIM)
+        kernel = (torch.rand(V_DIM, n, device=dev, generator=gen) * 2 - 1) * V_DIM ** -0.5
+        w_q, w_scale = quantize_weight_per_col(kernel)
+        b = ((torch.rand(n, device=dev, generator=gen) * 2 - 1) * 0.1).to(bf16) \
+            if with_bias else None
+        return x_q, scale.to(xs_dtype), w_q, w_scale, b
+
+    def compare_int8(batch, rows: int, n: int, xs_dtype, with_bias: bool,
+                     relu: bool, out_dtype=bf16) -> None:
+        """The int8 GEMM against its plain version, bit for bit: the 3-D
+        entry on [batch, 36, K] when ``batch``, else the 2-D one on rows."""
+        x_q, xs, w_q, w_scale, b = int8_inputs(rows, n, xs_dtype, with_bias)
+        b = b.to(out_dtype) if b is not None else None
+        kw = dict(bias=b, relu=relu, out_dtype=out_dtype)
+        if batch:
+            name = "int8_matmul_dequant_3d"
+            args = (x_q.view(batch, OBJS, V_DIM), xs.view(batch, OBJS), w_q, w_scale)
+            got = int8_matmul.int8_matmul_dequant_3d(*args, **kw)
+            want = int8_matmul.int8_matmul_dequant_3d_reference(*args, **kw)
+            shape = f"B={batch}x{OBJS}"
+        else:
+            name = "int8_matmul_dequant"
+            got = int8_matmul.int8_matmul_dequant(x_q, xs, w_q, w_scale, **kw)
+            want = int8_matmul.int8_matmul_dequant_reference(x_q, xs, w_q, w_scale, **kw)
+            shape = f"M={rows}"
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        same = torch.equal(got, want)
+        log(f"kernel {name} {shape} K={V_DIM} N={n} scales {xs_dtype} out {out_dtype}"
+            f"{' bias' if with_bias else ''}{' relu' if relu else ''}: equal to the "
+            f"plain version bit for bit: {same} (max abs err {err:.3g})")
+        require(same, f"{name} {shape} N={n}: kernel differs from its plain version")
+        max_err[name] = max(max_err.get(name, 0.0), err)
+
+    def gcn_inputs(batch: int, dtype):
+        """gcn_chain_fused's operands: projections of unit scale, a ReLU'd
+        correlation, spatial labels 0..11, a label-bias table."""
+        out_self = torch.randn(batch, OBJS, V_DIM, device=dev, generator=gen).to(dtype)
+        proj = torch.randn(batch, OBJS, V_DIM, device=dev, generator=gen).to(dtype)
+        alpha = torch.relu(torch.randn(batch, OBJS, OBJS, device=dev, generator=gen)).to(dtype)
+        graph = torch.randint(0, 12, (batch, OBJS, OBJS), device=dev, generator=gen,
+                              dtype=torch.int32)
+        bias = ((torch.rand(12, V_DIM, device=dev, generator=gen) * 2 - 1)
+                * V_DIM ** -0.5).to(dtype)
+        return out_self, proj, alpha, graph, bias
+
     # -- 3. kernels against their plain versions ---------------------------
     with torch.inference_mode():
         # the MTL training batch of 4096 and a ragged batch, in every regime
@@ -501,6 +605,24 @@ def main() -> int:
         # the beam step's rows R = B x k at B=4096, and a ragged R
         for rows, ties in ((DECODE_TIME_BATCH * BEAM_K, False), (1000 * BEAM_K + 1, True)):
             compare_vocab(rows, ties, BEAM_K)
+        # the ReGAT path: the v-projection (bf16 feed scales, bias, ReLU)
+        # and a GCN projection (quantize_rows' f32 scales) on the 3-D entry,
+        # the GCN projections' rows and a ragged M on the 2-D one
+        f32 = torch.float32
+        for batch in (REGAT_TIME_BATCH, 1003):
+            compare_int8(batch, batch * OBJS, HIDDEN, bf16, True, True)
+            compare_int8(batch, batch * OBJS, V_DIM, f32, False, False)
+        compare_int8(None, REGAT_TIME_BATCH * OBJS, V_DIM, f32, False, False)
+        compare_int8(None, 3001, HIDDEN, f32, True, True, out_dtype=f32)
+        for batch in (REGAT_TIME_BATCH, 1003):
+            for dtype, rtol, atol_rel in ((bf16, GCN_BF16_RTOL, GCN_BF16_ATOL_REL),
+                                          (f32, GCN_F32_RTOL, GCN_F32_ATOL_REL)):
+                chain = gcn_inputs(batch, dtype)
+                want = gcn_chain.gcn_chain_reference(*chain)
+                compare("gcn_chain_fused", gcn_chain.gcn_chain_fused(*chain), want,
+                        atol_rel * want.float().abs().max().item(), rtol,
+                        f"B={batch} N={OBJS} D={V_DIM} {dtype}")
+                del chain, want
 
     # -- 4. serve a few requests through the port's main path --------------
     dims = dict(encoder_type="base", predictor_type="base", decoder_type="none",
@@ -519,6 +641,13 @@ def main() -> int:
                               is_val=True, dataset_type="vqa",
                               feature_mode="int8")
         host_batches = list(Loader(dataset, SERVE_BATCH, drop_last=True))
+        # the same requests with their spatial graphs, for the ReGAT phase
+        graph_set = set_dataset(os.path.join(root, "annot"),
+                                os.path.join(root, "features"), ANS,
+                                graph_path=os.path.join(root, "graphs"),
+                                is_val=True, dataset_type="vqa",
+                                feature_mode="int8")
+        host_graphs = [b["graph"] for b in Loader(graph_set, SERVE_BATCH, drop_last=True)]
         vocab = Vocab.load(os.path.join(root, "vocab_list.txt"))
     require(len(host_batches) == SERVE_REQUESTS,
             f"loader gave {len(host_batches)} batches")
@@ -543,7 +672,7 @@ def main() -> int:
 
         got = [model(r)[0] for r in requests]
         with ExitStack() as stack:
-            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk, decode_att)
+            plain_kernels(stack, *kernel_modules)
             want = [model(r)[0] for r in requests]
         got, want = torch.cat(got).float(), torch.cat(want).float()
         require(got.shape == (SERVE_BATCH * SERVE_REQUESTS, ANS), f"logits {tuple(got.shape)}")
@@ -596,7 +725,7 @@ def main() -> int:
         require(agree_vocab >= BEAM_AGREE_VOCAB,
                 f"best beams agree {agree_vocab:.4f} < {BEAM_AGREE_VOCAB}")
         with ExitStack() as stack:
-            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk, decode_att)
+            plain_kernels(stack, *kernel_modules)
             plain_all = [beam(r) for r in requests]
         agree_all = compare_beams("every kernel on its plain version", decoded,
                                   plain_all, vocab.start)
@@ -751,7 +880,7 @@ def main() -> int:
         require(all(_build.LAUNCHES[n] > 0 for n in TRAIN_KERNELS),
                 f"the {label} step did not launch every decode-attention kernel")
         with ExitStack() as stack:
-            plain_kernels(stack, gru_v2, feed_gemm, lazyv_pool, vocab_topk, decode_att)
+            plain_kernels(stack, *kernel_modules)
             _build.reset_launches()
             p_loss, p_grads = step_grads(dtype)
             require(not any(_build.LAUNCHES.values()), "the plain step launched a kernel")
@@ -843,15 +972,143 @@ def main() -> int:
     if args.profile:
         profile_run("training step", lambda: train_step(state, big), C_LEN - 1)
 
-    paths = {"vqa": launches, "decode": dec_launches, "train": train_launches}
+    del mtl, state, train_step, plain_mtl, plain_state, plain_step, big, x_q, scale
+    torch.cuda.empty_cache()
+
+    # -- 10. serve ReGAT requests through the port's main path -------------
+    regat = set_model(**REGAT_DIMS, use_pallas=True, use_int8=True,
+                      generator=torch.Generator().manual_seed(3))
+    regat = regat.to(device=dev, dtype=bf16).eval()
+    regat_requests = [dict(r, graph=torch.from_numpy(g).to(dev))
+                      for r, g in zip(requests, host_graphs)]
+
+    def serve_regat(model, label: str, want_kernels, no_kernels):
+        """Serve the requests through forward_vqa; check the launches, the
+        outputs, and the logits against the model on plain versions."""
+        _build.reset_launches()
+        served = [model.forward_vqa(r) for r in regat_requests]
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        log(f"regat: {SERVE_REQUESTS} requests of B={SERVE_BATCH} with spatial graphs "
+            f"through VQAModel.forward_vqa ({label}); kernel launches {counts}")
+        for name, per_forward in want_kernels.items():
+            require(counts[name] == per_forward * SERVE_REQUESTS,
+                    f"the ReGAT path ({label}) launched {name} {counts[name]} times, "
+                    f"not {per_forward} a forward")
+        for name in no_kernels:
+            require(counts[name] == 0, f"the ReGAT path ({label}) launched {name}")
+        for score, lab, _ in served:
+            require(score.shape == (SERVE_BATCH, ANS) and lab.shape == (SERVE_BATCH,),
+                    f"forward_vqa shapes {tuple(score.shape)}, {tuple(lab.shape)}")
+            require(torch.isfinite(score).all().item(), "non-finite scores")
+        got = torch.cat([model(r)[0] for r in regat_requests]).float()
+        with ExitStack() as stack:
+            plain_kernels(stack, *kernel_modules)
+            _build.reset_launches()
+            want = torch.cat([model(r)[0] for r in regat_requests]).float()
+            require(not any(_build.LAUNCHES.values()), "the plain forward launched a kernel")
+        require(torch.isfinite(got).all().item(), "non-finite logits")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        agree = (got.argmax(1) == want.argmax(1)).float().mean().item()
+        log(f"regat: logits ({label}) vs the same model on plain versions: max abs err "
+            f"/ max |logit| = {rel:.3g} (tolerance {LOGIT_REL_TOL:g}), max |logit| "
+            f"{want.abs().max().item():.3g}, argmax agreement {agree:.4f}")
+        require(rel <= LOGIT_REL_TOL, f"ReGAT logits ({label}) disagree with the plain versions")
+        return counts
+
+    with torch.inference_mode():
+        regat_launches = serve_regat(regat, "use_int8", REGAT_KERNELS,
+                                     ("dequant_matmul", "pool_int8"))
+        regat_bf16 = set_model(**REGAT_DIMS, use_pallas=True, use_int8=False)
+        regat_bf16 = regat_bf16.to(device=dev, dtype=bf16).eval()
+        regat_bf16.load_state_dict(regat.state_dict())
+        bf16_launches = serve_regat(
+            regat_bf16, "use_int8=False",
+            {"gru_v2": 1, "dequant_matmul": 1, "gcn_chain_fused": 1},
+            ("int8_matmul_dequant", "int8_matmul_dequant_3d", "pool_int8"))
+
+    # -- 11. ReGAT timing ---------------------------------------------------
+    library = {}
+    with torch.inference_mode():
+        for name, batch, n, xs_dtype, with_bias in (
+                ("int8_matmul_dequant_3d", REGAT_TIME_BATCH, HIDDEN, bf16, True),
+                ("int8_matmul_dequant", None, V_DIM, f32, False)):
+            rows = REGAT_TIME_BATCH * OBJS
+            x_q, xs, w_q, w_scale, b = int8_inputs(rows, n, xs_dtype, with_bias)
+            if batch:
+                ops = (x_q.view(batch, OBJS, V_DIM), xs.view(batch, OBJS), w_q, w_scale)
+            else:
+                ops = (x_q, xs, w_q, w_scale)
+            kw = dict(bias=b, relu=with_bias, out_dtype=bf16)
+            kern, plain = getattr(int8_matmul, name), getattr(int8_matmul, name + "_reference")
+            times[name] = time_pair(lambda: kern(*ops, **kw), lambda: plain(*ops, **kw), 3)
+            bounds[name] = bound(nbytes(x_q, xs, w_q, w_scale, b, kern(*ops, **kw)),
+                                 2.0 * rows * V_DIM * n, "int8")
+            library[name] = time_ms(lambda: torch._int_mm(x_q, w_q), 10)
+            log(f"time {name} M={rows} K={V_DIM} N={n}: kernel {times[name][0]:.4f} ms, "
+                f"plain (f64 product) {times[name][1]:.4f} ms, torch._int_mm (the int32 "
+                f"product alone) {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+                f"({bounds[name][1]}) [{card}]")
+            del x_q, xs, w_q, w_scale, b, ops
+        chain = gcn_inputs(REGAT_TIME_BATCH, bf16)
+        times["gcn_chain_fused"] = time_pair(lambda: gcn_chain.gcn_chain_fused(*chain),
+                                             lambda: gcn_chain.gcn_chain_reference(*chain), 5)
+        chain_ops = 2.0 * REGAT_TIME_BATCH * OBJS * (OBJS * (2 * V_DIM + OBJS) + 12 * V_DIM)
+        bounds["gcn_chain_fused"] = bound(nbytes(*chain, gcn_chain.gcn_chain_fused(*chain)),
+                                          chain_ops, "bf16")
+        log(f"time gcn_chain_fused B={REGAT_TIME_BATCH} N={OBJS} D={V_DIM} bf16: kernel "
+            f"{times['gcn_chain_fused'][0]:.4f} ms, plain {times['gcn_chain_fused'][1]:.4f} "
+            f"ms, bound {bounds['gcn_chain_fused'][0]:.4f} ms "
+            f"({bounds['gcn_chain_fused'][1]}) [{card}]")
+        del chain
+
+        x_q, scale = int8_feed(REGAT_TIME_BATCH * OBJS, V_DIM)
+        big = {"q": torch.randint(0, NTOKEN, (REGAT_TIME_BATCH, Q_LEN), device=dev,
+                                  generator=gen),
+               "img_q": x_q.view(REGAT_TIME_BATCH, OBJS, V_DIM),
+               "img_scale": scale.view(REGAT_TIME_BATCH, OBJS),
+               "graph": torch.randint(0, 12, (REGAT_TIME_BATCH, OBJS, OBJS), device=dev,
+                                      generator=gen, dtype=torch.int32)}
+        regat_dense = set_model(**REGAT_DIMS).to(device=dev, dtype=bf16).eval()
+        regat_dense.load_state_dict(regat.state_dict())
+
+        def regat_plain():
+            with ExitStack() as stack:
+                plain_kernels(stack, *kernel_modules)
+                return regat(big)
+
+        runs = {"kernels": lambda: regat(big), "plain versions": regat_plain,
+                "bf16, no use_int8 / use_pallas": lambda: regat_dense(big)}
+        peaks = {}
+        for label, run in runs.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        fwd_k, fwd_p = time_pair(runs["kernels"], runs["plain versions"], 2)
+        fwd_d = time_ms(runs["bf16, no use_int8 / use_pallas"], 3)
+        log(f"time ReGAT forward B={REGAT_TIME_BATCH} int8 feed bf16: kernels {fwd_k:.3f} ms "
+            f"({REGAT_TIME_BATCH / fwd_k * 1e3:.1f} q/s), plain versions {fwd_p:.3f} ms "
+            f"({REGAT_TIME_BATCH / fwd_p * 1e3:.1f} q/s), bf16 without use_int8 and "
+            f"use_pallas {fwd_d:.3f} ms ({REGAT_TIME_BATCH / fwd_d * 1e3:.1f} q/s); peak "
+            f"memory above the weights and batch: " + ", ".join(
+                f"{k} {v:.2f} GiB" for k, v in peaks.items()) + f" [{card}]")
+        if args.profile:
+            profile_run("ReGAT forward", runs["kernels"], 1)
+
+    paths = {"vqa": launches, "decode": dec_launches, "train": train_launches,
+             "regat": regat_launches, "regat_no_int8": bf16_launches}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
                 "launches": paths[MAIN_PATH[name]][name],
                 "launches_by_path": {p: n[name] for p, n in paths.items()},
                 "max_abs_err": max_err[name],
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                # no single PyTorch call computes any of these functions
-                "library_ms": None}
+                # torch._int_mm gives the int32 product of the int8 GEMM
+                # alone; no single PyTorch call computes any other of these
+                "library_ms": library.get(name)}
                for name in KERNELS]
     print(card)
     print(json.dumps({"kernels": entries}))

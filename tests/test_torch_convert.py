@@ -16,7 +16,8 @@ import jax.numpy as jnp
 from vqa_tpu.models.wrapper import set_model as jax_set_model
 from vqa_tpu.tools.import_torch import import_reference_state_dict
 from vqa_tpu_torch.models.wrapper import set_model
-from vqa_tpu_torch.tools.convert import flax_to_state_dict
+from vqa_tpu_torch.tools.convert import (
+    flax_to_state_dict, gcn_params_from_state_dict)
 
 B, Q_LEN, EMBED, HIDDEN, V_DIM, OBJS, NTOKEN, ANS = 16, 6, 12, 32, 128, 6, 50, 20
 
@@ -125,6 +126,59 @@ def test_convert_names_the_reference_keys(rng):
     assert sd["encoder.attention.linear.weight_g"].shape == ()
     assert sd["predictor.classifier.main.3.weight_v"].shape == (ANS, 2 * HIDDEN)
     assert sd["encoder.attention.W_v.main.0.weight_v"].shape == (HIDDEN, V_DIM)
+
+
+@pytest.mark.parametrize("conv_type,use_imp,conv_layer", [
+    ("corr", False, 1), ("corr", True, 2), ("direct", False, 1),
+    ("base", True, 1)])
+def test_convert_round_trips_gcn_params(rng, conv_type, use_imp, conv_layer):
+    """The relation model's GCN convs: flax -> port state_dict (loaded
+    strictly) -> flax through the port's own inverse, since vqa_tpu's
+    importer maps no GCN key (reference checkpoints carry none); the rest
+    round-trips through vqa_tpu's importer. The two models agree."""
+    dims = dict(encoder_type="relation", predictor_type="base",
+                decoder_type="none", ntoken=NTOKEN, v_dim=V_DIM,
+                embed_dim=EMBED, hidden_dim=HIDDEN, ans_dim=ANS, dropout=0.2,
+                att_type="new", conv_type=conv_type, conv_layer=conv_layer,
+                use_spa=True, use_imp=use_imp)
+    batch = {"img": rng.standard_normal((B, OBJS, V_DIM)).astype(np.float32),
+             "q": rng.integers(0, NTOKEN, (B, Q_LEN)).astype(np.int32),
+             "graph": rng.integers(0, 12, (B, OBJS, OBJS)).astype(np.int32)}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jm = jax_set_model(**dims)
+    params = jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.key(9), jbatch)["params"])
+    sd = flax_to_state_dict(params)
+    conv = "encoder.spatial_encoder.conv0"
+    if conv_type == "base":
+        assert sd[f"{conv}.weight"].shape == (V_DIM, V_DIM)
+        assert f"{conv}.bias" in sd
+    else:
+        assert sd[f"{conv}.w2.weight"].shape == (V_DIM, V_DIM)
+        assert sd[f"{conv}.label_bias"].shape == (12, V_DIM)
+        np.testing.assert_array_equal(
+            sd[f"{conv}.w0.weight"].numpy(),
+            params["encoder"]["spatial_encoder"]["conv0"]["w0"].T)
+    if conv_type == "corr":
+        assert sd[f"{conv}.dot_product.wb.bias"].shape == (V_DIM,)
+    port = set_model(**dims, device="cpu")
+    port.load_state_dict(sd)                          # strict: every key
+    gcn, rest = gcn_params_from_state_dict(port.state_dict())
+    back, unmapped = import_reference_state_dict(rest)
+    assert unmapped == []
+    for name, tree in gcn["encoder"].items():
+        back["encoder"][name] = tree
+    want, got = flat(params), flat(back)
+    assert want.keys() == got.keys()
+    for key in want:
+        np.testing.assert_array_equal(got[key].reshape(want[key].shape),
+                                      want[key], err_msg=str(key))
+
+    with torch.no_grad():
+        predict, _ = port.eval()({k: torch.from_numpy(v) for k, v in batch.items()})
+    ref, _ = jm.apply({"params": params}, jbatch)
+    np.testing.assert_allclose(predict.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_convert_rejects_unknown_parameters():

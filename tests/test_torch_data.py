@@ -15,12 +15,15 @@ import pytest
 
 from vqa_tpu.data.dataset import set_dataset as jax_set_dataset
 from vqa_tpu.data.loader import Loader as JaxLoader
+from vqa_tpu.data.relation import relation_graph as jax_relation_graph
+from vqa_tpu.data.relation import relation_graphs_batched as jax_graphs_batched
 from vqa_tpu.data.shards import pack_feature_dir
 from vqa_tpu.data.shards import quantize_features as jax_quantize
 from vqa_tpu.data.synthetic import make_synthetic_root as jax_make_root
 from vqa_tpu.data.tokenizer import Vocab as JaxVocab
 from vqa_tpu_torch.data.dataset import set_dataset
 from vqa_tpu_torch.data.loader import Loader
+from vqa_tpu_torch.data.relation import relation_graph, relation_graphs_batched
 from vqa_tpu_torch.data.shards import quantize_features
 from vqa_tpu_torch.data.synthetic import make_synthetic_root
 from vqa_tpu_torch.data.tokenizer import Vocab
@@ -41,8 +44,8 @@ def roots(tmp_path_factory):
 
 
 def test_synthetic_root_writes_the_same_files(roots):
-    """Every question, answer, caption, feature, vocab and selection file is
-    byte-equal; only the relation-graph files are left out of the port's."""
+    """Every question, answer, caption, feature, relation-graph, vocab and
+    selection file is byte-equal, and the port writes no other."""
     jax_root, port_root = roots
     for dirpath, _, files in os.walk(port_root):
         rel = os.path.relpath(dirpath, port_root)
@@ -60,8 +63,9 @@ def test_synthetic_root_writes_the_same_files(roots):
                for d, _, fs in os.walk(jax_root) for n in fs}
     ported = {os.path.relpath(os.path.join(d, n), port_root)
               for d, _, fs in os.walk(port_root) for n in fs}
-    assert ported == {p for p in written if not p.startswith("graphs")}
+    assert ported == written
     assert any(p.startswith(os.path.join("annot", "train2014_captions")) for p in ported)
+    assert any(p.startswith(os.path.join("graphs", "train2014")) for p in ported)
 
 
 def test_quantize_and_vocab_match(rng, roots):
@@ -125,3 +129,52 @@ def test_packed_store_batches_match(tmp_path, roots):
         kw = dict(is_train=True, dataset_type="vqa-e", feature_mode=mode)
         _assert_same_batches(list(Loader(set_dataset(*args, **kw), 16)),
                              list(JaxLoader(jax_set_dataset(*args, **kw), 16)))
+
+
+def test_relation_graphs_match_jax(rng):
+    """The port's copy of the relation builder: the batched labels equal
+    JAX's, and each image's equal the per-pair loop of both packages, on
+    boxes with the reference's edge cases (a box inside another, one box
+    equal to another, overlapping and distant boxes)."""
+    xy = rng.random((3, 9, 2)) * 300
+    wh = rng.random((3, 9, 2)) * 120 + 5
+    bbox = np.concatenate([xy, xy + wh], axis=-1)
+    bbox[0, 1] = bbox[0, 0] + [10, 10, -10, -10]     # inside box 0
+    bbox[0, 2] = bbox[0, 0]                          # equal to box 0
+    bbox[1, 3] = bbox[1, 4] + [5, 5, 5, 5]           # overlaps box 4
+    w, h = np.array([640.0, 500.0, 320.0]), np.array([480.0, 375.0, 240.0])
+    got = relation_graphs_batched(bbox, w, h)
+    want = jax_graphs_batched(bbox, w, h)
+    assert got.dtype == want.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    for b in range(3):
+        np.testing.assert_array_equal(relation_graph(bbox[b], w[b], h[b]), got[b])
+        np.testing.assert_array_equal(jax_relation_graph(bbox[b], w[b], h[b]), got[b])
+    assert {1, 2, 3} <= set(np.unique(got)) and got.max() <= 11
+
+
+@pytest.mark.parametrize("store,feature_mode", [
+    ("npz", "int8"), ("npz", "float32"), ("packed", "int8")])
+def test_graph_batches_match(tmp_path, roots, store, feature_mode):
+    """With a graph_path both packages' batches carry the same ``graph``
+    [B, objs, objs] int32 labels: from the per-image npz files, or from a
+    packed store's ``_graphs.npy`` (written by the JAX package's packer)."""
+    jax_root, _ = roots
+    feat = os.path.join(jax_root, "features")
+    graphs = os.path.join(jax_root, "graphs")
+    if store == "packed":
+        out = tmp_path / "features"
+        out.mkdir()
+        pack_feature_dir(os.path.join(feat, "train2014"), str(out / "train2014"),
+                         feature_dtype=np.int8,
+                         graph_dir=os.path.join(graphs, "train2014"))
+        feat = str(out)
+    args = (os.path.join(jax_root, "annot"), feat, ROOT_KW["num_answers"])
+    kw = dict(graph_path=graphs, is_train=True, dataset_type="vqa",
+              feature_mode=feature_mode)
+    got = list(Loader(set_dataset(*args, **kw), 8, shuffle=True, seed=2))
+    want = list(JaxLoader(jax_set_dataset(*args, **kw), 8, shuffle=True, seed=2))
+    _assert_same_batches(got, want)
+    n = ROOT_KW["num_objs"]
+    assert all(b["graph"].shape == (8, n, n) and b["graph"].dtype == np.int32
+               for b in got)

@@ -10,8 +10,10 @@ Four variants, keyed as the reference keys them:
 
 ``get_batch(indices)`` returns a dict of stacked fixed-shape numpy arrays;
 with ``feature_mode="int8"`` the features come as ``img_q`` int8 with
-per-box ``img_scale``. Relation graphs are not read: no Up-Down path needs
-them.
+per-box ``img_scale``. With a ``graph_path`` the batches carry the spatial
+relation labels ``graph`` [B, num_objs, num_objs] int32: from per-image
+``.npz`` files (key ``graph``) beside npz features, or from the packed
+store's ``<prefix>_graphs.npy``.
 """
 
 from __future__ import annotations
@@ -33,19 +35,28 @@ def _load_json_data(path: str):
 
 
 class _NpzFeatures:
-    """One ``.npz`` per image (key ``x``), the reference's layout."""
+    """One ``.npz`` per image (key ``x``, and key ``graph`` in the graph
+    directory), the reference's layout."""
 
-    def __init__(self, feature_dir: str):
+    def __init__(self, feature_dir: str, graph_dir: str = ""):
         self.feature_dir = feature_dir
+        self.graph_dir = graph_dir
 
-    def batch(self, img_files: Sequence[str], quantized: bool = False):
+    def batch(self, img_files: Sequence[str], want_graph: bool,
+              quantized: bool = False):
         feats = [np.load(os.path.join(self.feature_dir, name))["x"]
                  for name in img_files]
         stacked = np.asarray(np.stack(feats), dtype=np.float32)
         if quantized:
             q, scales = quantize_features(stacked)
-            return {"img_q": q, "img_scale": scales}
-        return {"img": stacked}
+            out = {"img_q": q, "img_scale": scales}
+        else:
+            out = {"img": stacked}
+        if want_graph:
+            out["graph"] = np.stack(
+                [np.load(os.path.join(self.graph_dir, name))["graph"]
+                 for name in img_files]).astype(np.int32)
+        return out
 
 
 class _PackedBackend:
@@ -54,31 +65,37 @@ class _PackedBackend:
     def __init__(self, prefix: str):
         self.packed = PackedFeatures(prefix)
 
-    def batch(self, img_files: Sequence[str], quantized: bool = False):
+    def batch(self, img_files: Sequence[str], want_graph: bool,
+              quantized: bool = False):
         rows = np.asarray([self.packed.row(f) for f in img_files])
         if quantized:
             q, scales = self.packed.gather_quantized(rows)
-            return {"img_q": q, "img_scale": scales}
-        return {"img": self.packed.gather(rows)}
+            out = {"img_q": q, "img_scale": scales}
+        else:
+            out = {"img": self.packed.gather(rows)}
+        if want_graph:
+            out["graph"] = self.packed.gather_graphs(rows).astype(np.int32)
+        return out
 
 
-def _make_backend(feature_path: str):
+def _make_backend(feature_path: str, graph_path: str):
     if os.path.exists(feature_path + "_index.json"):
         return _PackedBackend(feature_path)
-    return _NpzFeatures(feature_path)
+    return _NpzFeatures(feature_path, graph_path)
 
 
 class VQADataset:
     """VQA questions + soft-score answers + image features."""
 
     def __init__(self, load_path: str, feature_path: str, dataset_name: str,
-                 ans_dim: int, caption_id_path: str = "",
+                 ans_dim: int, graph_path: str = "", caption_id_path: str = "",
                  feature_mode: str = "float32"):
         del caption_id_path
         self.questions = _load_json_data(f"{load_path}_questions.json")
         self.answers = _load_json_data(f"{load_path}_answers.json")
         self.ans_dim = ans_dim
-        self.backend = _make_backend(feature_path)
+        self.use_graph = graph_path != ""
+        self.backend = _make_backend(feature_path, graph_path)
         self.dataset_name = dataset_name
         self.feature_mode = feature_mode
         self.q_tokens = np.asarray([q["q"] for q in self.questions], np.int32)
@@ -94,7 +111,8 @@ class VQADataset:
 
     def _vqa_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
         files = [self.img_files[i] for i in indices]
-        out = self.backend.batch(files, quantized=self.feature_mode == "int8")
+        out = self.backend.batch(files, self.use_graph,
+                                 quantized=self.feature_mode == "int8")
         out["id"] = np.asarray(indices, np.int32)
         out["q"] = self.q_tokens[np.asarray(indices)]
         out["a"] = self.load_answers(indices)
@@ -108,9 +126,9 @@ class VQAEDataset(VQADataset):
     """VQA-E: one explanation caption per QA pair."""
 
     def __init__(self, load_path, feature_path, dataset_name, ans_dim,
-                 caption_id_path="", feature_mode="float32"):
+                 graph_path="", caption_id_path="", feature_mode="float32"):
         super().__init__(load_path, feature_path, dataset_name, ans_dim,
-                         feature_mode=feature_mode)
+                         graph_path, feature_mode=feature_mode)
         caps = _load_json_data(f"{load_path}_captions.json")
         self.c_tokens = np.asarray([c["c"] for c in caps], np.int32)
         self.cap_lens = np.asarray([c["cap_len"] for c in caps], np.int32)
@@ -128,9 +146,9 @@ class VQACaptionAllDataset(VQADataset):
     ``vqa_index = i % len(questions)``, ``cap_index = i // len(questions)``."""
 
     def __init__(self, load_path, feature_path, dataset_name, ans_dim,
-                 caption_id_path="", feature_mode="float32"):
+                 graph_path="", caption_id_path="", feature_mode="float32"):
         super().__init__(load_path, feature_path, dataset_name, ans_dim,
-                         feature_mode=feature_mode)
+                         graph_path, feature_mode=feature_mode)
         with open(f"{load_path}_all_captions.json") as f:
             self.captions = json.load(f)
         self.img_ids = [str(int(f[-16:-4])) for f in self.img_files]
@@ -169,9 +187,9 @@ class VQACaptionDataset(VQACaptionAllDataset):
     """One selected caption per QA pair via the selection pickle."""
 
     def __init__(self, load_path, feature_path, dataset_name, ans_dim,
-                 caption_id_path="", feature_mode="float32"):
+                 graph_path="", caption_id_path="", feature_mode="float32"):
         super().__init__(load_path, feature_path, dataset_name, ans_dim,
-                         feature_mode=feature_mode)
+                         graph_path, feature_mode=feature_mode)
         with open(caption_id_path, "rb") as f:
             self.caption_id = pickle.load(f)
 
@@ -183,10 +201,10 @@ class VQACaptionDataset(VQACaptionAllDataset):
 
 
 def set_dataset(load_path: str, feature_path: str, ans_dim: int,
-                caption_id_path: str = "", is_train: bool = False,
-                is_val: bool = False, dataset_type: str = "select",
-                feature_mode: str = "float32"):
-    """Dataset factory with ``vqa_tpu``'s arguments, less ``graph_path``."""
+                caption_id_path: str = "", graph_path: str = "",
+                is_train: bool = False, is_val: bool = False,
+                dataset_type: str = "select", feature_mode: str = "float32"):
+    """Dataset factory with ``vqa_tpu``'s arguments."""
     if is_train:
         dataset_name = "train2014"
     elif is_val:
@@ -198,4 +216,6 @@ def set_dataset(load_path: str, feature_path: str, ans_dim: int,
     return cls(load_path=os.path.join(load_path, dataset_name),
                feature_path=os.path.join(feature_path, dataset_name),
                dataset_name=dataset_name, ans_dim=ans_dim,
+               graph_path=(os.path.join(graph_path, dataset_name)
+                           if graph_path else ""),
                caption_id_path=caption_id_path, feature_mode=feature_mode)

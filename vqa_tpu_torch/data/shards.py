@@ -4,7 +4,8 @@
 
 A packed store is ``<prefix>_features.npy`` [N, num_objs, v_dim] (float16,
 or int8 with per-box scales in ``<prefix>_scales.npy``), optional
-``<prefix>_bbox.npy`` and ``<prefix>_index.json`` {img_file: row}. Gathers
+``<prefix>_bbox.npy`` and ``<prefix>_graphs.npy`` [N, num_objs, num_objs]
+int8 relation labels, and ``<prefix>_index.json`` {img_file: row}. Gathers
 are numpy fancy indexing over the memory map: the JAX package's threaded
 native gather is a speed path that gives the same bytes.
 """
@@ -38,6 +39,9 @@ class PackedFeatures:
         scales_path = prefix + "_scales.npy"
         self.scales = (np.load(scales_path, mmap_mode="r")
                        if os.path.exists(scales_path) else None)
+        graph_path = prefix + "_graphs.npy"
+        self.graphs = (np.load(graph_path, mmap_mode="r")
+                       if os.path.exists(graph_path) else None)
 
     def row(self, img_file: str) -> int:
         return self.index[img_file]
@@ -62,3 +66,9 @@ class PackedFeatures:
                     np.asarray(self.scales[rows], np.float32))
         return quantize_features(
             np.asarray(self.features[rows]).astype(np.float32))
+
+    def gather_graphs(self, rows: np.ndarray) -> np.ndarray:
+        """[batch] row ids -> [batch, num_objs, num_objs] stored labels."""
+        if self.graphs is None:
+            raise ValueError("no packed graphs at this prefix")
+        return np.asarray(self.graphs[np.asarray(rows)])

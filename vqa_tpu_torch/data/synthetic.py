@@ -4,10 +4,9 @@
 Writes ``annot/{split}_questions.json`` / ``_answers.json`` /
 ``_answer_type.json`` / ``_captions.json`` / ``_all_captions.json``, the
 caption-selection pickle, ``index.json``, per-image feature ``.npz`` (keys
-``x``, ``bbox``) and the vocab / answer-candidate text files, byte for byte
-as the JAX package writes them for the same seed. The relation-graph files
-are left out: no Up-Down path reads them. Their boxes are still drawn, so
-the random stream, and every file written, stays the same.
+``x``, ``bbox``), per-image spatial-relation graph ``.npz`` (key ``graph``,
+from the boxes in a 640 x 480 image) and the vocab / answer-candidate text
+files, byte for byte as the JAX package writes them for the same seed.
 """
 
 from __future__ import annotations
@@ -17,6 +16,8 @@ import os
 import pickle
 
 import numpy as np
+
+from vqa_tpu_torch.data.relation import relation_graphs_batched
 
 
 def make_synthetic_root(root: str,
@@ -34,8 +35,10 @@ def make_synthetic_root(root: str,
     rng = np.random.default_rng(seed)
     annot = os.path.join(root, "annot")
     feat_dir = os.path.join(root, "features", split)
+    graph_dir = os.path.join(root, "graphs", split)
     os.makedirs(annot, exist_ok=True)
     os.makedirs(feat_dir, exist_ok=True)
+    os.makedirs(graph_dir, exist_ok=True)
 
     # vocab: words w0..wN + specials; answers a0..aM
     words = [f"w{i}" for i in range(vocab_size - 4)] + \
@@ -51,6 +54,7 @@ def make_synthetic_root(root: str,
     end_id = len(words) - 2
 
     img_files = []
+    bboxes = np.zeros((num_images, num_objs, 4))
     for i in range(num_images):
         name = f"COCO_{split}_{str(i + 1).zfill(12)}.npz"
         img_files.append(name)
@@ -58,7 +62,13 @@ def make_synthetic_root(root: str,
         xy = rng.random((num_objs, 2)) * 400
         wh = rng.random((num_objs, 2)) * 100 + 10
         bbox = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+        bboxes[i] = bbox
         np.savez(os.path.join(feat_dir, name), x=x, bbox=bbox)
+    graphs = relation_graphs_batched(bboxes, np.full(num_images, 640.0),
+                                     np.full(num_images, 480.0))
+    for i, name in enumerate(img_files):
+        np.savez(os.path.join(graph_dir, name),
+                 graph=graphs[i].astype(np.float64))
 
     q_data, a_data = [], []
     ans_type = {"yes/no": [], "number": [], "other": []}
@@ -129,6 +139,7 @@ def make_synthetic_root(root: str,
     return {
         "annot": annot,
         "feature_root": os.path.join(root, "features"),
+        "graph_root": os.path.join(root, "graphs"),
         "vocab_path": vocab_path,
         "ans_path": ans_path,
         "select_path": select_path,

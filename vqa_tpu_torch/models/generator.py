@@ -26,7 +26,6 @@ Linear init. Parameters carry the reference's torch names (``word_rnn``
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional
 
 import torch
@@ -35,30 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from vqa_tpu_torch.ops.attention import set_att
 from vqa_tpu_torch.ops.decode_scan import SCAN_PARAMS, make_butd_caption_scan
-from vqa_tpu_torch.ops.linear import uniform_
+from vqa_tpu_torch.ops.linear import Dense
 from vqa_tpu_torch.ops.rnn import RNNCell
-
-
-class Dense(nn.Module):
-    """A plain Linear, ``weight`` [out, in] and ``bias`` [out] (the JAX
-    package's ``_Dense``): the product in the input's dtype, then the bias
-    in that dtype. Init U(-1/sqrt(in), 1/sqrt(in)) unless ``bound`` is
-    given; ``zero_bias`` starts the bias at 0."""
-
-    def __init__(self, in_dim: int, out_dim: int,
-                 bound: Optional[float] = None, zero_bias: bool = False, *,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        default = 1.0 / math.sqrt(in_dim)
-        self.weight = nn.Parameter(uniform_(torch.empty(out_dim, in_dim),
-                                            bound or default, generator))
-        self.bias = nn.Parameter(
-            torch.zeros(out_dim) if zero_bias
-            else uniform_(torch.empty(out_dim), default, generator))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.weight.to(x.dtype).t()) \
-            + self.bias.to(x.dtype)
 
 
 def _out(state):

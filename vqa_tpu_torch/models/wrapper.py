@@ -4,8 +4,9 @@
 The port holds the Up-Down paths: the base encoder with the base VQA
 predictor, the Base/BUTD caption decoders, or both, for inference and for
 training through ``get_loss`` (the MTL uncertainty weighting with both
-heads). ``set_model`` raises ``NotImplementedError`` for every type or
-option outside them.
+heads); and ReGAT: the relation encoder with the base VQA predictor.
+``set_model`` raises ``NotImplementedError`` for every type or option
+outside them.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vqa_tpu_torch.models.encoder import BaseEncoder
+from vqa_tpu_torch.models.encoder import BaseEncoder, RelationEncoder
 from vqa_tpu_torch.models.generator import set_decoder
 from vqa_tpu_torch.models.predictor import BasePredictor
 
@@ -196,31 +197,35 @@ def set_model(encoder_type: str = "base",
     f32 on the CPU from ``generator`` (so a seed gives the same weights on
     any device), then moved to ``device``: ``cuda:0`` unless the caller
     asks for another, and an error where there is no CUDA device and no
-    ``device`` was given. The relation-encoder arguments belong to types the
-    port does not hold yet."""
-    del neg_slope, conv_layer, conv_type, use_spa, use_imp, use_sem
+    ``device`` was given."""
+    del neg_slope
     not_yet = "is not ported yet (ROADMAP.md Queue 1)"
-    if encoder_type != "base":
+    if encoder_type not in ("base", "relation"):
         raise NotImplementedError(f"encoder_type {encoder_type!r} {not_yet}")
     if predictor_type not in ("base", "none"):
         raise NotImplementedError(
             f"predictor_type {predictor_type!r} {not_yet}")
     if decoder_type not in ("base", "butd", "none"):
         raise NotImplementedError(f"decoder_type {decoder_type!r} {not_yet}")
+    if encoder_type == "relation" and decoder_type != "none":
+        raise NotImplementedError(
+            f"a caption decoder over the relation encoder {not_yet}")
     if frozen_embedding is not None:
         raise NotImplementedError(f"a frozen GloVe embedding {not_yet}")
-    if use_int8:
-        raise NotImplementedError(
-            "use_int8 needs the int8_matmul kernel, which is not ported yet "
-            "(ROADMAP.md Queue 2, int8_matmul.py)")
     target = resolve_device(device)    # fails before any weight is drawn
-    encoder = BaseEncoder(ntoken, v_dim, embed_dim, hidden_dim,
-                          rnn_layer=rnn_layer, dropout=dropout,
-                          rnn_type=rnn_type, att_type=att_type,
-                          att_dropout=att_dropout, use_pallas=use_pallas,
-                          with_v=decoder_type != "none",
-                          with_v_sum=predictor_type != "none",
-                          generator=generator)
+    common = dict(rnn_layer=rnn_layer, dropout=dropout, rnn_type=rnn_type,
+                  att_type=att_type, att_dropout=att_dropout,
+                  use_pallas=use_pallas, use_int8=use_int8,
+                  generator=generator)
+    if encoder_type == "relation":
+        encoder = RelationEncoder(ntoken, v_dim, embed_dim, hidden_dim,
+                                  conv_layer=conv_layer, conv_type=conv_type,
+                                  use_imp=bool(use_imp), use_spa=bool(use_spa),
+                                  use_sem=bool(use_sem), **common)
+    else:
+        encoder = BaseEncoder(ntoken, v_dim, embed_dim, hidden_dim,
+                              with_v=decoder_type != "none",
+                              with_v_sum=predictor_type != "none", **common)
     predictor = (BasePredictor(v_dim, hidden_dim, ans_dim,
                                cls_layer=cls_layer, dropout=dropout,
                                generator=generator)

@@ -5,7 +5,8 @@ Counterparts of ``vqa_tpu/ops/attention.py``. Both modules return
 question is [B, k, q_dim] against boxes shared by the k beams of an image,
 and the weights are [B, k, num_objs, 1], a softmax over axis 2. The
 v-side projection ``project_v`` has no question input, so a decoder
-computes it once per batch and passes it to every step as ``v_cache``.
+computes it once per batch and passes it to every step as ``v_cache``;
+``project_v_int8`` is the same projection read from the int8 feed.
 """
 
 from __future__ import annotations
@@ -38,6 +39,19 @@ class ConcatAttention(nn.Module):
         on the question side): v [B, objs, v_dim] -> [B, objs, hidden]."""
         w = self.sequence[0].weight(v.dtype)
         return torch.matmul(v, w[:, :self.v_dim].t())
+
+    def project_v_int8(self, img_q: torch.Tensor, img_scale: torch.Tensor,
+                       use_kernel: bool = False,
+                       use_int8: bool = False) -> torch.Tensor:
+        """``project_v`` of the dequantized feed ``img_q * img_scale``, in
+        the scale's dtype. ``use_int8``: the v rows of the concat kernel as
+        one int8 GEMM over the payload (``use_kernel`` picks the 3-D kernel
+        entry); else the dense features are formed and projected."""
+        if use_int8:
+            return self.sequence[0].int8_forward(
+                img_q, img_scale, use_pallas=use_kernel, in_cols=self.v_dim,
+                add_bias=False)
+        return self.project_v(img_q.to(img_scale.dtype) * img_scale[..., None])
 
     def forward(self, v: Optional[torch.Tensor], q: torch.Tensor, *,
                 v_cache: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -77,11 +91,15 @@ class MultiplyAttention(nn.Module):
         return self.W_v(v)
 
     def project_v_int8(self, img_q: torch.Tensor, img_scale: torch.Tensor,
-                       use_kernel: bool) -> torch.Tensor:
+                       use_kernel: bool = False,
+                       use_int8: bool = False) -> torch.Tensor:
         """``W_v`` of the dequantized feed ``img_q * img_scale`` [B, objs,
-        v_dim], read from the int8 payload (the dequant-GEMM kernel when
-        ``use_kernel``) -> [B, objs, hidden] in the scale's dtype."""
-        return self.W_v(img_q, x_scale=img_scale, use_kernel=use_kernel)
+        v_dim], read from the int8 payload -> [B, objs, hidden] in the
+        scale's dtype: as one int8 GEMM with ``use_int8`` (``use_kernel``
+        picks the 3-D kernel entry), else through the dequant-GEMM kernel
+        when ``use_kernel``, else its plain version."""
+        return self.W_v(img_q, x_scale=img_scale, use_kernel=use_kernel,
+                        int8_gemm=use_int8)
 
     def forward(self, v: Optional[torch.Tensor], q: torch.Tensor, *,
                 v_cache: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # them to show that its path went through the kernels
 LAUNCHES = {"gru_v2": 0, "dequant_matmul": 0, "pool_int8": 0,
             "vocab_topk_lse": 0, "decode_att_fwd": 0, "decode_att_bwd": 0,
-            "decode_att_dvp": 0}
+            "decode_att_dvp": 0, "int8_matmul_dequant": 0,
+            "int8_matmul_dequant_3d": 0, "gcn_chain_fused": 0}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _ENTRY_POINTS = {
@@ -59,6 +60,11 @@ _ENTRY_POINTS = {
     # dls, qps, k, out, seed, T, B, objs, H, att_scale, thresh, act,
     # out_kind, stream
     "decode_att_dvp": (_P,) * 4 + (_U, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # x_q, x_scale, w_nk, w_scale, bias, out, M, K, N, xs_bf16, out_bf16,
+    # relu, stream
+    "int8_matmul_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # out_self, proj, alpha, graph, bias, out, B, D, L, is_bf16, stream
+    "gcn_chain_forward": (_P,) * 6 + (_I,) * 4 + (_P,),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,4 +1,4 @@
-"""Weight-normed fully-connected building blocks.
+"""Weight-normed fully-connected building blocks and plain Linears.
 
 Counterparts of ``vqa_tpu/ops/linear.py``:
 
@@ -11,6 +11,10 @@ Counterparts of ``vqa_tpu/ops/linear.py``:
   hidden layers and a ReLU after the *last* layer, held as the Sequential
   ``main`` in the reference's slot layout (Linear, ReLU, Dropout, ...), so
   its parameters are ``main.{i}.*``.
+- ``Dense``: a plain Linear (``weight`` [out, in], optional ``bias``), the
+  JAX package's ``_Dense`` and the GCN's bias-free direction weights.
+- ``DotProduct``: the bilinear similarity ``(a Wa + ba) (b Wb + bb)^T`` of
+  the correlated graph conv, and its ``similarity_parts`` form.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from vqa_tpu_torch.ops.kernels import feed_gemm
+from vqa_tpu_torch.ops.quant import int8_dot
 
 
 def uniform_(t: torch.Tensor, bound: float,
@@ -54,14 +60,20 @@ class WNDense(nn.Module):
 
     def forward(self, x: torch.Tensor, *,
                 x_scale: Optional[torch.Tensor] = None,
-                use_kernel: bool = False) -> torch.Tensor:
-        """``x @ W.T + b``. An int8 ``x`` is a quantized activation with
-        per-row scales ``x_scale``: the product is ``(x * x_scale) @ W.T`` in
-        the scale's dtype, through the dequant-GEMM kernel when
-        ``use_kernel``, else through its plain version."""
+                use_kernel: bool = False, int8_gemm: bool = False,
+                relu: bool = False) -> torch.Tensor:
+        """``x @ W.T + b``, then the ReLU with ``relu``. An int8 ``x`` is a
+        quantized activation with per-row scales ``x_scale``; the output is
+        in the scale's dtype. With ``int8_gemm`` it goes through the int8
+        GEMM (:meth:`int8_forward`, ``use_kernel`` picking the 3-D kernel
+        entry); else the product is ``(x * x_scale) @ W.T``, through the
+        dequant-GEMM kernel when ``use_kernel``, else its plain version."""
         if x.dtype == torch.int8:
             if x_scale is None:
                 raise ValueError("an int8 input needs x_scale")
+            if int8_gemm:
+                return self.int8_forward(x, x_scale, use_pallas=use_kernel,
+                                         relu=relu)
             w = self.weight(x_scale.dtype)
             gemm = (feed_gemm.dequant_matmul if use_kernel
                     else feed_gemm.dequant_matmul_reference)
@@ -71,7 +83,22 @@ class WNDense(nn.Module):
             y = torch.matmul(x, self.weight(x.dtype).t())
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        return y
+        return F.relu(y) if relu else y
+
+    def int8_forward(self, x_q: torch.Tensor, x_scale: torch.Tensor, *,
+                     use_pallas: bool = False,
+                     in_cols: Optional[int] = None, add_bias: bool = True,
+                     relu: bool = False) -> torch.Tensor:
+        """The int8 GEMM of ``vqa_tpu``'s WNDense (ops/quant.py int8_dot):
+        the weight-normed kernel in the parameter dtype (its first
+        ``in_cols`` inputs), quantized per output column; the bias and the
+        ReLU in the epilogue; the output in the scale's dtype."""
+        w = self.weight(self.weight_v.dtype)
+        if in_cols is not None:
+            w = w[:, :in_cols]
+        return int8_dot(x_q, x_scale, w.t(), out_dtype=x_scale.dtype,
+                        use_pallas=use_pallas,
+                        bias=self.bias if add_bias else None, relu=relu)
 
     def fold_vector(self, x: torch.Tensor) -> torch.Tensor:
         """``x * W[0]`` for an out_dim == 1 layer: folds this projection into
@@ -109,8 +136,73 @@ class FCNet(nn.Module):
 
     def forward(self, x: torch.Tensor, *,
                 x_scale: Optional[torch.Tensor] = None,
-                use_kernel: bool = False) -> torch.Tensor:
-        """``x_scale``/``use_kernel`` go to the first layer, for an int8 ``x``
-        (see :meth:`WNDense.forward`)."""
-        x = self.main[0](x, x_scale=x_scale, use_kernel=use_kernel)
-        return self.main[1:](x)
+                use_kernel: bool = False,
+                int8_gemm: bool = False) -> torch.Tensor:
+        """``x_scale``/``use_kernel``/``int8_gemm`` go to the first layer,
+        for an int8 ``x`` (see :meth:`WNDense.forward`), which applies the
+        ReLU of the next slot itself: in the int8 GEMM's epilogue."""
+        x = self.main[0](x, x_scale=x_scale, use_kernel=use_kernel,
+                         int8_gemm=int8_gemm, relu=True)
+        return self.main[2:](x)
+
+
+class Dense(nn.Module):
+    """A plain Linear, ``weight`` [out, in] and ``bias`` [out] (the JAX
+    package's ``_Dense``): the product in the input's dtype, then the bias
+    in that dtype. Init U(-1/sqrt(in), 1/sqrt(in)) unless ``bound`` is
+    given; ``zero_bias`` starts the bias at 0; ``bias=False`` declares
+    none."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 bound: Optional[float] = None, zero_bias: bool = False, *,
+                 bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        default = 1.0 / math.sqrt(in_dim)
+        self.weight = nn.Parameter(uniform_(torch.empty(out_dim, in_dim),
+                                            bound or default, generator))
+        self.bias = None
+        if bias:
+            self.bias = nn.Parameter(
+                torch.zeros(out_dim) if zero_bias
+                else uniform_(torch.empty(out_dim), default, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.weight.to(x.dtype).t())
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+class DotProduct(nn.Module):
+    """Bilinear similarity (reference modules.py:80-95): a [B, m, a_dim],
+    b [B, n, b_dim] -> ``(a Wa + ba) @ (b Wb + bb)^T`` [B, m, n], with the
+    reference's torch names ``wa.weight`` [out, a_dim], ``wa.bias``, ``wb.*``.
+    """
+
+    def __init__(self, a_dim: int, b_dim: int, out_dim: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.wa = Dense(a_dim, out_dim, generator=generator)
+        self.wb = Dense(b_dim, out_dim, generator=generator)
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The reference-shaped form (training)."""
+        return torch.einsum("bik,bjk->bij", self.wa(a), self.wb(b))
+
+    def similarity_parts(self, a: torch.Tensor, aq=None):
+        """``DotProduct(a, a)`` as ``alpha_ij = (a C) a^T |_ij + u_i + w_j``
+        with ``C = Wa Wb^T`` (f32), ``u = a (Wa bb) + ba.bb``, ``w = a (Wb
+        ba)``: one [*, in] @ [in, in] GEMM in place of the two out_dim
+        projections (exact algebra). ``aq``: the row-quantized (a_q, scale)
+        of ``a``, so that ``a C`` runs as an int8 GEMM. Returns (ac [B, n,
+        in] in a's dtype, u [B, n], w [B, n])."""
+        wa, ba = self.wa.weight.t(), self.wa.bias      # [in, out], [out]
+        wb, bb = self.wb.weight.t(), self.wb.bias
+        c = torch.matmul(wa.to(torch.float32), wb.to(torch.float32).t())
+        if aq is not None:
+            ac = int8_dot(aq[0], aq[1], c, out_dtype=a.dtype)
+        else:
+            ac = torch.matmul(a, c.to(a.dtype))
+        u = torch.matmul(a, torch.matmul(wa, bb).to(a.dtype)) \
+            + torch.dot(ba, bb).to(a.dtype)
+        w = torch.matmul(a, torch.matmul(wb, ba).to(a.dtype))
+        return ac, u, w
