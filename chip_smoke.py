@@ -66,7 +66,27 @@ Phases, each of which raises (exit code 1) on failure:
    shapes against its plain version and ``torch._int_mm``, gcn_chain_fused,
    and the ReGAT forward at B=8192 with the kernels, on plain versions and
    on the bf16 path without ``use_int8`` / ``use_pallas``, with peak
-   memory.
+   memory;
+12. library kernels (no model path calls them, in the JAX package or the
+   port): fused_multiply_attention_pool, gru_last_state and
+   gru_last_state_v3 against their plain versions in bf16 at the JAX test
+   shapes, at a ragged B=1003 and at full width (B=16384), the full-width
+   ones on the serving model's weights: the attention folded from its
+   ``MultiplyAttention`` (``weight_g / ||weight_v||``), also held against
+   that module's softmax on the dense bf16 feed and the pooling over it;
+   the GRUs on its question GRU and embedded questions, v1 also against
+   gru_v2 on the same input gates; then each timed against its plain
+   version (and the attention against the unfused bf16 module, v3 against
+   cuDNN's ``nn.GRU``);
+13. the entry point: ``vqa_tpu_torch.main.main`` in this process, on a
+   synthetic VQA-E root at full width, trains the MTL model (int8 feed,
+   ``use_pallas``, bf16 over f32 masters, length buckets) for one epoch of
+   a few B=512 steps and validates (decode_att_fwd/_bwd/_dvp must launch),
+   resumes from ``epoch_0.ckpt`` for a second epoch (the restored step and
+   Adamax moments must equal the saved ones), validates in ``--mode val``
+   (one score per val question) and beam-decodes in bf16 (vocab_topk_lse,
+   gru_v2 and dequant_matmul must launch; one caption per val question),
+   with each mode's wall time and the train samples/s.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
@@ -88,6 +108,7 @@ import time
 from contextlib import ExitStack
 from unittest import mock
 
+import numpy as np
 import torch
 
 # the flagship Up-Down dims (__graft_entry__.py entry(), bench.py)
@@ -174,6 +195,22 @@ REGAT_TIME_BATCH = 8192
 # output by at most 2**-8 of the largest value. f32: sum order only.
 GCN_BF16_RTOL, GCN_BF16_ATOL_REL = 2.0 ** -7, 2.0 ** -8
 GCN_F32_RTOL, GCN_F32_ATOL_REL = 1e-5, 1e-5
+# The library kernels against their plain versions, which compute in f32
+# from the same bf16 inputs: the kernels sum the same exact bf16 products
+# in f32 in another order, so att and pooled differ by f32 rounding of sums
+# of up to 2048 terms, far below 1e-4 of the largest value (measured 5e-6).
+# Against the serving model's MultiplyAttention, which runs its
+# projections, logits and softmax in bf16: att within 5e-3, pooled within
+# 1% of the largest value. The GRUs: as gru_v2 (GRU_ATOL), and v1 against
+# gru_v2 on the same input gates within the same bound (one bf16 rounding of
+# the state flipped by a sum order moves the later steps).
+LIB_F32_ATOL_REL = 1e-4
+MODULE_ATT_ATOL, MODULE_POOL_ATOL_REL = 5e-3, 1e-2
+LIB_TIME_BATCH = 16384
+# the entry point's synthetic VQA-E root and run: train questions over
+# images, val questions, steps a training epoch
+CLI_IMAGES, CLI_TRAIN_Q, CLI_VAL_Q, CLI_STEPS = 192, 2048, 1024, 4
+
 # the card's peaks for the bound of each kernel: HBM3 bytes per ms, dense
 # bf16 and int8 tensor-core and f32 (non-tensor) operations per ms
 # (NVIDIA's H100 SXM data sheet, at its full power limit of 700 W)
@@ -213,6 +250,13 @@ KERNELS = {
                                "replaces": "vqa_tpu/ops/pallas/int8_matmul.py:170"},
     "gcn_chain_fused": {"source": "vqa_tpu_torch/csrc/gcn_chain.cu",
                         "replaces": "vqa_tpu/ops/pallas/gcn_chain.py:102"},
+    "fused_multiply_attention_pool": {
+        "source": "vqa_tpu_torch/csrc/fused_attention.cu",
+        "replaces": "vqa_tpu/ops/pallas/fused_attention.py:66"},
+    "gru_last_state": {"source": "vqa_tpu_torch/csrc/gru.cu",
+                       "replaces": "vqa_tpu/ops/pallas/gru.py:82"},
+    "gru_last_state_v3": {"source": "vqa_tpu_torch/csrc/gru.cu",
+                          "replaces": "vqa_tpu/ops/pallas/gru_v3.py:77"},
 }
 # the kernels each path must launch
 VQA_KERNELS = ("gru_v2", "dequant_matmul", "pool_int8")
@@ -222,10 +266,15 @@ TRAIN_KERNELS = ("decode_att_fwd", "decode_att_bwd", "decode_att_dvp")
 # GCN's three projections (2-D entry), the chain; the launches of each
 REGAT_KERNELS = {"gru_v2": 1, "int8_matmul_dequant_3d": 1,
                  "int8_matmul_dequant": 3, "gcn_chain_fused": 1}
-# the path whose run gives each kernel's "launches"
+# the library kernels, which no model path calls
+LIBRARY_KERNELS = ("fused_multiply_attention_pool", "gru_last_state",
+                   "gru_last_state_v3")
+# the path whose run gives each kernel's "launches" (the library kernels':
+# the entry point's four modes together, where they launch no time)
 MAIN_PATH = {**{k: "vqa" for k in VQA_KERNELS}, "vocab_topk_lse": "decode",
              **{k: "train" for k in TRAIN_KERNELS},
-             **{k: "regat" for k in REGAT_KERNELS if k != "gru_v2"}}
+             **{k: "regat" for k in REGAT_KERNELS if k != "gru_v2"},
+             **{k: "cli" for k in LIBRARY_KERNELS}}
 
 
 def log(msg: str) -> None:
@@ -270,6 +319,13 @@ def bound(nbytes_: int, ops: float, kind: str):
     and the operations over the card's peak for their type."""
     mem, ops_ms = nbytes_ / HBM_BYTES_PER_MS, ops / PEAK_OPS_PER_MS[kind]
     return (mem, "bytes") if mem >= ops_ms else (ops_ms, "operations")
+
+
+def gru_ops(batch: int, t_len: int, hidden: int, e_dim: int = 0) -> float:
+    """Operations a GRU over t_len steps needs: the input product [B, E] x
+    [E, 3H] every step (when done inside, e_dim > 0) and the recurrent
+    product [B, H] x [H, 3H] on all but the first, whose state is zero."""
+    return 2.0 * batch * 3 * hidden * (t_len * e_dim + (t_len - 1) * hidden)
 
 
 def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool,
@@ -352,12 +408,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vqa_tpu_torch import main as cli
     from vqa_tpu_torch.ops.kernels import (
-        _build, decode_att, feed_gemm, gcn_chain, gru_v2, int8_matmul,
-        lazyv_pool, vocab_topk)
+        _build, decode_att, feed_gemm, fused_attention, gcn_chain, gru, gru_v2,
+        gru_v3, int8_matmul, lazyv_pool, vocab_topk)
     from vqa_tpu_torch.ops.quant import quantize_weight_per_col
     from vqa_tpu_torch.models.wrapper import set_model
     from vqa_tpu_torch.tools.beam import make_beam_search, tokens_to_captions
+    from vqa_tpu_torch.training import train as train_loop
     from vqa_tpu_torch.training.optim import make_optimizer
     from vqa_tpu_torch.training.state import (
         TrainState, backward_step, make_train_step)
@@ -739,7 +797,7 @@ def main() -> int:
         times["gru_v2"] = time_pair(lambda: gru_v2.gru_last_state_v2(xi, wh, bh),
                                     lambda: gru_v2.gru_last_state_v2_reference(xi, wh, bh), 10)
         bounds["gru_v2"] = bound(nbytes(xi, wh, bh, gru_v2.gru_last_state_v2(xi, wh, bh)),
-                                 2.0 * TIME_BATCH * Q_LEN * HIDDEN * 3 * HIDDEN, "bf16")
+                                 gru_ops(TIME_BATCH, Q_LEN, HIDDEN), "bf16")
         del xi, wh, bh
         x_q, scale, w = gemm_inputs(TIME_BATCH * OBJS)
         times["dequant_matmul"] = time_pair(
@@ -810,6 +868,153 @@ def main() -> int:
             f"({DECODE_TIME_BATCH / dec_u * 1e3:.1f} captions/s) [{card}]")
         if args.profile:
             profile_run("decode", lambda: beam(batch), C_LEN - 1)
+
+    # -- 12. the library kernels against their plain versions ---------------
+    # (run here, while the serving model whose weights they take is alive)
+    library = {}
+
+    def lib_attention_inputs(batch, n, dv, h, hq):
+        """Attention operands: unit-normal boxes, a question in (-1, 1), Linear
+        init weights; f32 and bf16 vectors mixed (the kernel upcasts both)."""
+        def u(*shape, scale):
+            return (torch.rand(*shape, device=dev, generator=gen) * 2 - 1) * scale
+        return (torch.randn(batch, n, dv, device=dev, generator=gen).to(bf16),
+                u(batch, hq, scale=1.0).to(bf16), u(dv, h, scale=dv ** -0.5).to(bf16),
+                u(h, scale=0.1), u(hq, h, scale=hq ** -0.5).to(bf16),
+                u(h, scale=0.1).to(bf16), u(h, 1, scale=h ** -0.5), u(1, scale=0.1).to(bf16))
+
+    def compare_attention(args, shape):
+        pooled, att = fused_attention.fused_multiply_attention_pool(*args)
+        p_pooled, p_att = fused_attention.multiply_attention_pool_reference(*args)
+        for what, got, want in (("att", att, p_att), ("pooled", pooled, p_pooled)):
+            compare("fused_multiply_attention_pool", got, want,
+                    LIB_F32_ATOL_REL * want.abs().max().item(), 0.0, f"{shape} {what}")
+        return pooled, att
+
+    def within(name: str, what: str, got, want, atol: float) -> None:
+        """A check against another route than the plain version (it does not
+        enter max_abs_err)."""
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"kernel {name} {what}: max abs err {err:.3g} (max |other| "
+            f"{want.float().abs().max().item():.3g}), tolerance {atol:.3g}")
+        require(torch.isfinite(got).all().item() and err <= atol,
+                f"{name} {what}: disagrees")
+
+    def lib_gru_inputs(batch, t_len, e_dim, hidden):
+        def u(*shape, scale):
+            return ((torch.rand(*shape, device=dev, generator=gen) * 2 - 1) * scale).to(bf16)
+        emb = torch.randn(batch, t_len, e_dim, device=dev, generator=gen).to(bf16)
+        return (emb, u(e_dim, 3 * hidden, scale=e_dim ** -0.5), u(3 * hidden, scale=hidden ** -0.5),
+                u(hidden, 3 * hidden, scale=hidden ** -0.5), u(3 * hidden, scale=hidden ** -0.5))
+
+    def compare_grus(emb, wi, bi, wh, bh, shape):
+        """v1 on the v2 route's bf16 input gates, against its plain version
+        and against gru_v2; v3 on the embeddings against its plain version."""
+        xi = (torch.matmul(emb, wi) + bi).to(bf16)
+        v1 = gru.gru_last_state(xi, wh, bh)
+        compare("gru_last_state", v1, gru.gru_last_state_reference(xi, wh, bh), GRU_ATOL,
+                0.0, shape)
+        within("gru_last_state", f"{shape} vs gru_v2 on the same xi", v1,
+               gru_v2.gru_last_state_v2(xi, wh, bh), GRU_ATOL)
+        compare("gru_last_state_v3", gru_v3.gru_last_state_v3(emb, wi, bi, wh, bh),
+                gru_v3.gru_last_state_v3_reference(emb, wi, bi, wh, bh), GRU_ATOL, 0.0,
+                f"{shape} E={emb.shape[2]}")
+        return xi
+
+    # one PyTorch call computes gru_last_state_v3's function: cuDNN's GRU
+    # (every step and the last state) on the serving model's question-GRU
+    # weights, built outside inference mode so that its weights are flattened
+    cudnn_gru = torch.nn.GRU(EMBED, HIDDEN, batch_first=True).to(dev, bf16)
+    with torch.no_grad():
+        w_ih, b_ih, w_hh, b_hh = model.encoder.q_rnn.rnn.layer(0, 0)
+        for dst, src in zip(cudnn_gru.parameters(), (w_ih, w_hh, b_ih, b_hh)):
+            dst.copy_(src)
+    cudnn_gru.flatten_parameters()
+    with torch.inference_mode():
+        # the JAX test shapes (tests/test_pallas.py) and a ragged batch
+        for shape in ((32, 12, 64, 48, 40), (16, 9, 32, 24, 24),
+                      (1003, OBJS, V_DIM, HIDDEN, HIDDEN)):
+            compare_attention(lib_attention_inputs(*shape),
+                              "B={} N={} Dv={} H={} Hq={}".format(*shape))
+        # H=2048: the state tile needs more shared memory than a block has,
+        # so the launch refuses it, counts nothing, and leaves no error
+        # behind for the launches below
+        wide = torch.zeros(2048, 3 * 2048, device=dev, dtype=bf16)
+        before = dict(_build.LAUNCHES)
+        try:
+            gru.gru_last_state(torch.zeros(64, 2, 3 * 2048, device=dev, dtype=bf16),
+                               wide, wide[0])
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+        log(f"kernel gru_last_state H=2048: refused at launch: {refused!r}")
+        require("CUDA error" in refused and _build.LAUNCHES == before,
+                "gru_last_state H=2048 was not refused at launch")
+        del wide
+        for batch, t_len, e_dim, hidden in ((16, 10, 12, 32), (16, 6, 12, 32),
+                                            (1003, Q_LEN, EMBED, HIDDEN)):
+            compare_grus(*lib_gru_inputs(batch, t_len, e_dim, hidden),
+                         f"B={batch} T={t_len} H={hidden}")
+        # full width on the serving model's MultiplyAttention, weight norm
+        # folded as the module folds it (g / ||v|| in its bf16 parameters)
+        att_mod = model.encoder.attention
+        fc_v, fc_q, lin = att_mod.W_v.main[0], att_mod.W_q.main[0], att_mod.linear
+        v = torch.randn(LIB_TIME_BATCH, OBJS, V_DIM, device=dev, generator=gen).to(bf16)
+        q = (torch.rand(LIB_TIME_BATCH, HIDDEN, device=dev, generator=gen) * 2 - 1).to(bf16)
+        lib_args = (v, q, fc_v.weight(bf16).t(), fc_v.bias, fc_q.weight(bf16).t(),
+                    fc_q.bias, lin.weight(bf16).t(), lin.bias)
+        shape = (f"B={LIB_TIME_BATCH} N={OBJS} Dv={V_DIM} H={HIDDEN} Hq={HIDDEN} "
+                 "(serving model)")
+        pooled, att = compare_attention(lib_args, shape)
+        mod_att = att_mod(v, q)[..., 0]
+        within("fused_multiply_attention_pool", f"{shape} att vs MultiplyAttention (bf16)",
+               att, mod_att, MODULE_ATT_ATOL)
+        mod_pooled = torch.einsum("bn,bnd->bd", mod_att.float(), v.float())
+        within("fused_multiply_attention_pool", f"{shape} pooled vs sum_n att v", pooled,
+               mod_pooled, MODULE_POOL_ATOL_REL * mod_pooled.abs().max().item())
+        del mod_pooled
+        name = "fused_multiply_attention_pool"
+        times[name] = time_pair(lambda: fused_attention.fused_multiply_attention_pool(*lib_args),
+                                lambda: fused_attention.multiply_attention_pool_reference(
+                                    *lib_args), 3)
+        bounds[name] = bound(nbytes(*lib_args, pooled, att), 2.0 * LIB_TIME_BATCH * (
+            OBJS * V_DIM * HIDDEN + HIDDEN * HIDDEN + OBJS * HIDDEN + OBJS * V_DIM), "bf16")
+        unfused_att_ms = time_ms(
+            lambda: torch.einsum("bn,bnd->bd", att_mod(v, q)[..., 0], v), 3)
+        log(f"time {name} {shape}: kernel {times[name][0]:.4f} ms, plain (f32) "
+            f"{times[name][1]:.4f} ms, the unfused bf16 module (MultiplyAttention "
+            f"+ the pooling einsum, cuBLAS) {unfused_att_ms:.4f} ms, bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
+        del v, q, lib_args, pooled, att, mod_att
+        # full width on the serving model's question GRU and embeddings
+        emb = model.encoder.embed(torch.randint(0, NTOKEN, (LIB_TIME_BATCH, Q_LEN),
+                                                device=dev, generator=gen))
+        gru_args = (emb, w_ih.t(), b_ih, w_hh.t(), b_hh)
+        shape = f"B={LIB_TIME_BATCH} T={Q_LEN} H={HIDDEN} (serving model)"
+        xi = compare_grus(*gru_args, shape)
+        wh, bh = w_hh.t(), b_hh
+        times["gru_last_state"] = time_pair(lambda: gru.gru_last_state(xi, wh, bh),
+                                            lambda: gru.gru_last_state_reference(xi, wh, bh), 5)
+        out = gru.gru_last_state(xi, wh, bh)
+        bounds["gru_last_state"] = bound(nbytes(xi, wh, bh, out),
+                                         gru_ops(LIB_TIME_BATCH, Q_LEN, HIDDEN), "bf16")
+        times["gru_last_state_v3"] = time_pair(
+            lambda: gru_v3.gru_last_state_v3(*gru_args),
+            lambda: gru_v3.gru_last_state_v3_reference(*gru_args), 5)
+        bounds["gru_last_state_v3"] = bound(
+            nbytes(*gru_args, out), gru_ops(LIB_TIME_BATCH, Q_LEN, HIDDEN, EMBED), "bf16")
+        library["gru_last_state_v3"] = time_ms(lambda: cudnn_gru(emb), 5)
+        v2_ms = time_ms(lambda: gru_v2.gru_last_state_v2(xi, wh, bh), 5)
+        for name in ("gru_last_state", "gru_last_state_v3"):
+            log(f"time {name} {shape}: kernel {times[name][0]:.4f} ms, plain "
+                f"{times[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+                f"({bounds[name][1]}) [{card}]")
+        log(f"time gru_last_state_v3 {shape}: torch.nn.GRU (cuDNN, bf16) "
+            f"{library['gru_last_state_v3']:.4f} ms; gru_v2 on the same xi {v2_ms:.4f} ms "
+            f"[{card}]")
+        del emb, gru_args, xi, out, cudnn_gru
+    torch.cuda.empty_cache()
 
     # -- 7. train the full-width MTL model on Loader batches ----------------
     mtl_dims = dict(encoder_type="base", predictor_type="base", decoder_type="butd",
@@ -1028,7 +1233,6 @@ def main() -> int:
             ("int8_matmul_dequant", "int8_matmul_dequant_3d", "pool_int8"))
 
     # -- 11. ReGAT timing ---------------------------------------------------
-    library = {}
     with torch.inference_mode():
         for name, batch, n, xs_dtype, with_bias in (
                 ("int8_matmul_dequant_3d", REGAT_TIME_BATCH, HIDDEN, bf16, True),
@@ -1098,8 +1302,134 @@ def main() -> int:
         if args.profile:
             profile_run("ReGAT forward", runs["kernels"], 1)
 
+    # -- 13. the entry point, in this process ------------------------------
+    del regat, regat_bf16, regat_dense, big, x_q, scale, runs, model, dec_model, dec_plain
+    torch.cuda.empty_cache()
+    cli_launches, cli_wall, cli_train_s, cli_steps, restored = {}, {}, {}, {}, {}
+    real_train, real_load = cli.train, cli.load_checkpoint
+    real_make_step = train_loop.make_train_step
+
+    def timed_train(**kw):
+        """train() alone, timed to its last device operation; each training
+        step between two CUDA events, recorded as the host issues it."""
+        events = cli_steps.setdefault(kw["start_epoch"], [])
+
+        def make_timed_step(*a, **k):
+            step = real_make_step(*a, **k)
+
+            def timed_step(state, batch):
+                ends = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                ends[0].record()
+                out = step(state, batch)
+                ends[1].record()
+                events.append(ends)
+                return out
+            return timed_step
+
+        t0 = time.perf_counter()
+        with mock.patch.object(train_loop, "make_train_step", make_timed_step):
+            state = real_train(**kw)
+        torch.cuda.synchronize()
+        cli_train_s[kw["start_epoch"]] = time.perf_counter() - t0
+        return state
+
+    def capturing_load(path, state=None):
+        """load_checkpoint, keeping what the resume restored."""
+        out = real_load(path, state)
+        if state is not None:
+            restored["step"] = out["state"].step
+            restored["moments"] = {
+                i: {k: v.detach().cpu().clone() for k, v in st.items()}
+                for i, st in out["state"].optimizer.adamax.state_dict()["state"].items()}
+        return out
+
+    def run_mode(label: str, argv) -> None:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        cli_wall[label] = time.perf_counter() - t0
+        cli_launches[label] = dict(_build.LAUNCHES)
+        log(f"cli: {label}: {cli_wall[label]:.2f} s wall; kernel launches "
+            f"{cli_launches[label]}")
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as work, ExitStack() as stack:
+        stack.enter_context(mock.patch.object(cli, "train", timed_train))
+        stack.enter_context(mock.patch.object(cli, "load_checkpoint", capturing_load))
+        roots = [make_synthetic_root(work, split=split, num_images=n_img,
+                                     num_questions=n_q, num_objs=OBJS, v_dim=V_DIM,
+                                     vocab_size=NTOKEN, num_answers=ANS, q_len=Q_LEN,
+                                     c_len=C_LEN, seed=seed)
+                 for split, n_img, n_q, seed in (("train2014", CLI_IMAGES, CLI_TRAIN_Q, 4),
+                                                 ("val2014", CLI_IMAGES // 2, CLI_VAL_Q, 5))]
+        root = roots[0]
+        argv = ["--vocab_path", root["vocab_path"], "--ans_path", root["ans_path"],
+                "--load_path", root["annot"], "--feature_path", root["feature_root"],
+                "--pretrained_embed_path", "", "--comment", "mtl",
+                "--encoder_type", "base", "--predictor_type", "base",
+                "--decoder_type", "butd", "--select_path", "vqa-e", "--use_mtl", "1",
+                "--use_pallas", "1", "--feature_dtype", "int8",
+                "--train_dtype", "bfloat16", "--length_bucket", "1",
+                "--embed_dim", str(EMBED), "--hidden_dim", str(HIDDEN),
+                "--decoder_hidden_dim", str(HIDDEN), "--v_dim", str(V_DIM),
+                "--c_len", str(C_LEN), "--batch_size", str(TRAIN_BATCH),
+                "--batches", str(CLI_STEPS), "--seed", str(RUN_SEED)]
+        out = os.path.join(work, "checkpoint", "mtl")
+        os.chdir(work)
+        stack.callback(os.chdir, here)
+        run_mode("train", argv + ["--mode", "train", "--epoches", "1"])
+        for name in TRAIN_KERNELS:
+            require(cli_launches["train"][name] > 0, f"--mode train never launched {name}")
+        saved = torch.load(os.path.join(out, "epoch_0.ckpt"), weights_only=True)
+        run_mode("resume", argv + ["--mode", "train", "--start_epoch", "1",
+                                   "--epoches", "2"])
+        for name in TRAIN_KERNELS:
+            require(cli_launches["resume"][name] > 0, f"the resume never launched {name}")
+        same = restored["step"] == saved["step"] == CLI_STEPS and all(
+            torch.equal(restored["moments"][i][k], saved["optimizer"]["state"][i][k])
+            for i in saved["optimizer"]["state"] for k in ("exp_avg", "exp_inf", "step"))
+        log(f"cli: resume restored step {restored['step']} (saved {saved['step']}) and "
+            f"{len(restored['moments'])} parameters' Adamax moments, equal to the "
+            f"saved ones: {same}")
+        require(same, "the resume did not restore the saved step and moments")
+        resumed = torch.load(os.path.join(out, "epoch_1.ckpt"), weights_only=True)
+        require(resumed["step"] == 2 * CLI_STEPS, f"epoch_1.ckpt at step {resumed['step']}")
+        run_mode("val", argv + ["--mode", "val"])
+        scores = np.load(os.path.join(out, "valid", "scores.npy"))
+        require(scores.shape == (CLI_VAL_Q,) and np.isfinite(scores).all(),
+                f"--mode val scored {scores.shape} questions")
+        run_mode("decode", argv + ["--mode", "decode", "--decode_dtype", "bfloat16"])
+        for name in DECODE_KERNELS:
+            require(cli_launches["decode"][name] > 0, f"--mode decode never launched {name}")
+        with open(os.path.join(out, "decode.txt")) as f:
+            captions = [line for line in f.read().split("\n") if line]
+        require(len(captions) == CLI_VAL_Q, f"decode.txt holds {len(captions)} captions")
+        log(f"cli: decode.txt first captions {captions[:2]!r}")
+    for start_epoch, label in ((0, "train"), (1, "resume")):
+        events = cli_steps[start_epoch]
+        require(len(events) == CLI_STEPS, f"--mode {label} ran {len(events)} steps")
+        loop_s = events[0][0].elapsed_time(events[-1][1]) / 1e3
+        steps_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        samples = CLI_STEPS * TRAIN_BATCH
+        log(f"time cli --mode {label}: {cli_wall[label]:.2f} s wall (model build, data, "
+            f"{CLI_STEPS} steps of B={TRAIN_BATCH}, validation of {CLI_VAL_Q} questions, "
+            f"checkpoints); train() {cli_train_s[start_epoch]:.2f} s, the wall rate of "
+            f"the epoch with its validation and saves {samples / cli_train_s[start_epoch]:.1f}"
+            f" samples/s; the step loop (first step's start to last step's end on the "
+            f"card, the feed between steps included) {loop_s:.3f} s, "
+            f"{samples / loop_s:.1f} samples/s; the steps alone (each from its start "
+            f"to its end on the card) {steps_s:.3f} s, {samples / steps_s:.1f} samples/s, "
+            f"per step {[round(a.elapsed_time(b), 2) for a, b in events]} ms [{card}]")
+    log(f"time cli --mode val: {cli_wall['val']:.2f} s wall; --mode decode (bf16, "
+        f"k=3, c_len={C_LEN}): {cli_wall['decode']:.2f} s wall, "
+        f"{CLI_VAL_Q / cli_wall['decode']:.1f} captions/s [{card}]")
+    cli_total = {k: sum(c[k] for c in cli_launches.values()) for k in _build.LAUNCHES}
+
     paths = {"vqa": launches, "decode": dec_launches, "train": train_launches,
-             "regat": regat_launches, "regat_no_int8": bf16_launches}
+             "regat": regat_launches, "regat_no_int8": bf16_launches,
+             **{f"cli_{k}": v for k, v in cli_launches.items()}, "cli": cli_total}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
                 "launches": paths[MAIN_PATH[name]][name],
                 "launches_by_path": {p: n[name] for p, n in paths.items()},
@@ -1107,7 +1437,8 @@ def main() -> int:
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 # torch._int_mm gives the int32 product of the int8 GEMM
-                # alone; no single PyTorch call computes any other of these
+                # alone, cuDNN's GRU the function of gru_last_state_v3; no
+                # single PyTorch call computes any other of these
                 "library_ms": library.get(name)}
                for name in KERNELS]
     print(card)

@@ -3,5 +3,6 @@
 quantization, synthetic roots, the datasets and the ``Loader``).
 
 It imports neither torch nor jax: batches are dicts of numpy arrays, which
-the caller moves to the card.
+the caller moves to the card (``loader.prefetch_to_device``, which imports
+torch when it is called).
 """

@@ -1,5 +1,6 @@
 """Host-side batch feed with background prefetch (counterpart of
-``vqa_tpu/data/loader.py`` ``Loader``, without multi-host sharding).
+``vqa_tpu/data/loader.py`` ``Loader`` and ``prefetch_to_device``, without
+multi-host sharding).
 
 - Fixed shapes: every batch has exactly ``batch_size`` rows; a short tail
   batch repeats its first row and carries ``nvalid``.
@@ -9,13 +10,16 @@
   falls in the same bucket form a batch whose caption axis is cut to the
   bucket's bound + 1, so the decoder's scan runs fewer steps. Every dropped
   step is masked out of the loss either way.
+- ``prefetch_to_device`` moves the batches to a torch device ahead of the
+  consumer; it imports torch when called, so the loader itself stays numpy
+  only.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -60,6 +64,10 @@ class Loader:
         if self.drop_last:
             return self.length // self.batch_size
         return -(-self.length // self.batch_size)
+
+    @property
+    def num_samples(self) -> int:
+        return self.length
 
     def _bucket_of(self, lens: np.ndarray) -> np.ndarray:
         """Index of the first bound >= len (longer lengths share the last)."""
@@ -146,3 +154,72 @@ class Loader:
                 yield item
         finally:
             stop.set()
+
+
+# bookkeeping entries that stay host values: consumers read them on the host
+# (``int(batch.pop("nvalid"))``, the sample ids)
+_BOOKKEEPING = ("nvalid", "id")
+
+
+def prefetch_to_device(iterator, device, size: int = 2,
+                       keys: Optional[Sequence[str]] = None):
+    """Wrap a host-batch iterator so that the copies to ``device`` run ahead
+    of the consumer, ``size`` batches deep.
+
+    The entries named by ``keys`` (without ``keys``: every array entry but
+    the bookkeeping ``nvalid`` and ``id``) become torch tensors on
+    ``device``; the others pass through as they are, on the host. On a CUDA
+    device each entry is staged in pinned host memory and copied with
+    ``non_blocking`` on a side stream; a batch is handed out only after the
+    consumer's stream waits on the event that ends its copies, and its
+    tensors are recorded on that stream, so nothing synchronises the host.
+    On the CPU the batches pass through as tensors.
+    """
+    import collections
+
+    import torch
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+
+    def wanted(k, v):
+        if keys is not None:
+            return k in keys
+        return k not in _BOOKKEEPING and np.ndim(v) > 0
+
+    def put(batch):
+        out = dict(batch)
+        if not cuda:
+            for k, v in batch.items():
+                if wanted(k, v):
+                    out[k] = torch.as_tensor(np.asarray(v))
+            return out, None, None
+        pinned = []
+        with torch.cuda.stream(side):
+            for k, v in batch.items():
+                if wanted(k, v):
+                    host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                    pinned.append(host)
+                    out[k] = host.to(device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done, pinned       # pinned buffers live until handed out
+
+    def hand_out(item):
+        out, done, _ = item
+        if done is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(done)
+            for k, v in out.items():
+                if torch.is_tensor(v) and v.device.type == "cuda":
+                    v.record_stream(stream)
+        return out
+
+    queue_ = collections.deque()
+    for batch in iterator:
+        queue_.append(put(batch))
+        if len(queue_) >= size:
+            yield hand_out(queue_.popleft())
+    while queue_:
+        yield hand_out(queue_.popleft())

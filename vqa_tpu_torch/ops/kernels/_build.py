@@ -34,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"gru_v2": 0, "dequant_matmul": 0, "pool_int8": 0,
             "vocab_topk_lse": 0, "decode_att_fwd": 0, "decode_att_bwd": 0,
             "decode_att_dvp": 0, "int8_matmul_dequant": 0,
-            "int8_matmul_dequant_3d": 0, "gcn_chain_fused": 0}
+            "int8_matmul_dequant_3d": 0, "gcn_chain_fused": 0,
+            "fused_multiply_attention_pool": 0, "gru_last_state": 0,
+            "gru_last_state_v3": 0}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _ENTRY_POINTS = {
@@ -65,6 +67,13 @@ _ENTRY_POINTS = {
     "int8_matmul_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
     # out_self, proj, alpha, graph, bias, out, B, D, L, is_bf16, stream
     "gcn_chain_forward": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # v, q, wv_t, wq_t, bv, bq, wl, bl, pooled, att, B, N, Dv, H, Hq,
+    # vec_bf16, stream
+    "fused_attention_forward": (_P,) * 10 + (_I,) * 6 + (_P,),
+    # xi, w, bh, out, B, T, H, stream
+    "gru_last_state_forward": (_P,) * 4 + (_I,) * 3 + (_P,),
+    # emb, wi, bi, w, bh, out, B, T, H, E, E32, stream
+    "gru_last_state_v3_forward": (_P,) * 6 + (_I,) * 5 + (_P,),
 }
 
 _lib: Optional[ctypes.CDLL] = None

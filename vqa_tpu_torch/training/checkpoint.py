@@ -1,0 +1,140 @@
+"""Checkpoint save and restore: the port's own format.
+
+Same artifact layout as the JAX package (``checkpoint/<exp>/epoch_{n}.ckpt``,
+``best_model.ckpt``) and the same complete payload, in ``torch.save`` form:
+``{"model": state_dict, "optimizer": Adamax state_dict (moments included),
+"step", "seed", "epoch", "best_score"}``. The JAX package's flax msgpack
+files are not read here; a JAX checkpoint comes over by converting its
+parameters (``tools/convert.py``) on a machine with jax.
+
+Writes are atomic: the payload goes to a temporary file beside the target,
+is flushed and fsynced, then renamed over it, so an interrupted save leaves
+the previous file (or none), never a partial one.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from vqa_tpu_torch.training.state import TrainState
+
+
+def _to_host(tree: Any) -> Any:
+    """A copy of ``tree`` with every tensor detached and copied to the CPU
+    (the copy is taken now, so later in-place updates do not reach it)."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def _host_payload(state: TrainState, epoch: int,
+                  best_score: float = 0.0) -> Dict[str, Any]:
+    """The checkpoint payload of ``state``, copied to the host."""
+    return {"model": _to_host(state.model.state_dict()),
+            "optimizer": _to_host(state.optimizer.adamax.state_dict()),
+            "step": int(state.step), "seed": int(state.seed),
+            "epoch": int(epoch), "best_score": float(best_score)}
+
+
+def _write_payload(path: str, payload: Dict[str, Any]) -> None:
+    """``torch.save`` to ``path`` atomically (tmp + fsync + rename)."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    fd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+    try:
+        os.fsync(fd)             # the rename itself reaches the disk
+    finally:
+        os.close(fd)
+
+
+def save_checkpoint(path: str, state: TrainState, epoch: int,
+                    best_score: float = 0.0) -> None:
+    _write_payload(path, _host_payload(state, epoch, best_score))
+
+
+class Checkpointer:
+    """Asynchronous saves on one background thread. The host copy of the
+    state is taken on the caller, so training may go on updating it; the
+    serialization and fsync run on the thread. Give each asynchronous save
+    its own path (two overlapped writers to one path could land in either
+    order): the training loop saves ``best_model.ckpt`` synchronously."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending: List[Future] = []
+
+    def save_checkpoint_async(self, path: str, state: TrainState, epoch: int,
+                              best_score: float = 0.0) -> Future:
+        fut = self._pool.submit(_write_payload, path,
+                                _host_payload(state, epoch, best_score))
+        self._pending.append(fut)
+        return fut
+
+    def wait_for_checkpoints(self) -> None:
+        """Join the outstanding saves, raising the first one's error."""
+        pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
+
+    def close(self) -> None:
+        self.wait_for_checkpoints()
+        self._pool.shutdown()
+
+
+def _read(path: str) -> Dict[str, Any]:
+    # a payload of tensors, dicts, lists and numbers: no code is unpickled
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_checkpoint(path: str, state: Optional[TrainState] = None
+                    ) -> Dict[str, Any]:
+    """Load a checkpoint. Without ``state`` returns the payload; with it,
+    restores the model's parameters, the optimizer (moments and all), the
+    step and the run seed into ``state`` and returns ``{"state", "epoch",
+    "best_score"}``."""
+    payload = _read(path)
+    meta = {"epoch": int(payload["epoch"]),
+            "best_score": float(payload["best_score"])}
+    if state is None:
+        return payload
+    if not payload.get("optimizer"):
+        raise ValueError(
+            f"{path} has no optimizer state (a parameters-only checkpoint): "
+            "it supports eval/decode (load_params) or a warm start "
+            "(merge_params), not a training resume")
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.adamax.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    state.seed = int(payload["seed"])
+    return {"state": state, **meta}
+
+
+def load_params(path: str) -> Dict[str, torch.Tensor]:
+    """The model's ``state_dict`` alone (for eval, decode, warm start)."""
+    return _read(path)["model"]
+
+
+def merge_params(target: Dict[str, torch.Tensor],
+                 loaded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Non-strict warm start, as ``load_state_dict(..., strict=False)``
+    with a shape check: entries present in both with equal shapes come from
+    ``loaded``; unknown or mismatched ones keep ``target``'s."""
+    return {k: (loaded[k] if k in loaded and loaded[k].shape == v.shape
+                else v) for k, v in target.items()}
