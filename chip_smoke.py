@@ -23,7 +23,8 @@ Phases, each of which raises (exit code 1) on failure:
    ``keep_mask`` bit for bit; the int8 GEMM bit for bit at the ReGAT
    path's shapes (3-D entry at B=8192 and B=1003, N=1024 and 2048; 2-D
    entry at the GCN projections' rows and at a ragged M=3001 with bias and
-   ReLU); gcn_chain_fused at B=8192 and 1003 in bf16 and f32;
+   ReLU) and at the ragged edges of its tiling (N=1000, K=96, and M=100
+   with N=40); gcn_chain_fused at B=8192 and 1003 in bf16 and f32;
 4. serve: the full-width Up-Down model (bf16, ``use_pallas=True``, weights
    from a seeded generator) answers a few batches of the int8 feed made by
    the port's data layer (``vqa_tpu_torch.data``), through
@@ -63,7 +64,8 @@ Phases, each of which raises (exit code 1) on failure:
    more with ``use_int8=False``, where gcn_chain_fused runs beside
    dequant_matmul;
 11. ReGAT timing (for information): the int8 GEMM at both entries' path
-   shapes against its plain version and ``torch._int_mm``, gcn_chain_fused,
+   shapes against its plain version and ``torch._int_mm`` (with its share
+   of the bound and its ratio to that call), gcn_chain_fused,
    and the ReGAT forward at B=8192 with the kernels, on plain versions and
    on the bf16 path without ``use_int8`` / ``use_pallas``, with peak
    memory;
@@ -76,8 +78,10 @@ Phases, each of which raises (exit code 1) on failure:
    that module's softmax on the dense bf16 feed and the pooling over it;
    the GRUs on its question GRU and embedded questions, v1 also against
    gru_v2 on the same input gates; then each timed against its plain
-   version (and the attention against the unfused bf16 module, v3 against
-   cuDNN's ``nn.GRU``);
+   version (and the attention against the unfused bf16 module, v1 against
+   gru_v2 and v3 against cuDNN's ``nn.GRU``, with each GRU's share of its
+   bound and its ratio to that other route), and v1 at one full wave of
+   blocks against half a wave (whether L2 bandwidth bounds it);
 13. the entry point: ``vqa_tpu_torch.main.main`` in this process, on a
    synthetic VQA-E root at full width, trains the MTL model (int8 feed,
    ``use_pallas``, bf16 over f32 masters, length buckets) for one epoch of
@@ -587,27 +591,27 @@ def main() -> int:
               decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED, **kw),
               f"T={steps} d_vp")
 
-    def int8_inputs(rows: int, n: int, xs_dtype, with_bias: bool):
+    def int8_inputs(rows: int, n: int, xs_dtype, with_bias: bool, k: int = V_DIM):
         """The int8 GEMM's operands at a path shape: int8 rows with per-row
         scales (the feed's bf16 ones, or quantize_rows' f32 ones), a
         weight-normed-scale kernel quantized per column, a bf16 bias."""
-        x_q, scale = int8_feed(rows, V_DIM)
-        kernel = (torch.rand(V_DIM, n, device=dev, generator=gen) * 2 - 1) * V_DIM ** -0.5
+        x_q, scale = int8_feed(rows, k)
+        kernel = (torch.rand(k, n, device=dev, generator=gen) * 2 - 1) * k ** -0.5
         w_q, w_scale = quantize_weight_per_col(kernel)
         b = ((torch.rand(n, device=dev, generator=gen) * 2 - 1) * 0.1).to(bf16) \
             if with_bias else None
         return x_q, scale.to(xs_dtype), w_q, w_scale, b
 
     def compare_int8(batch, rows: int, n: int, xs_dtype, with_bias: bool,
-                     relu: bool, out_dtype=bf16) -> None:
+                     relu: bool, out_dtype=bf16, k: int = V_DIM) -> None:
         """The int8 GEMM against its plain version, bit for bit: the 3-D
         entry on [batch, 36, K] when ``batch``, else the 2-D one on rows."""
-        x_q, xs, w_q, w_scale, b = int8_inputs(rows, n, xs_dtype, with_bias)
+        x_q, xs, w_q, w_scale, b = int8_inputs(rows, n, xs_dtype, with_bias, k)
         b = b.to(out_dtype) if b is not None else None
         kw = dict(bias=b, relu=relu, out_dtype=out_dtype)
         if batch:
             name = "int8_matmul_dequant_3d"
-            args = (x_q.view(batch, OBJS, V_DIM), xs.view(batch, OBJS), w_q, w_scale)
+            args = (x_q.view(batch, OBJS, k), xs.view(batch, OBJS), w_q, w_scale)
             got = int8_matmul.int8_matmul_dequant_3d(*args, **kw)
             want = int8_matmul.int8_matmul_dequant_3d_reference(*args, **kw)
             shape = f"B={batch}x{OBJS}"
@@ -619,7 +623,7 @@ def main() -> int:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         same = torch.equal(got, want)
-        log(f"kernel {name} {shape} K={V_DIM} N={n} scales {xs_dtype} out {out_dtype}"
+        log(f"kernel {name} {shape} K={k} N={n} scales {xs_dtype} out {out_dtype}"
             f"{' bias' if with_bias else ''}{' relu' if relu else ''}: equal to the "
             f"plain version bit for bit: {same} (max abs err {err:.3g})")
         require(same, f"{name} {shape} N={n}: kernel differs from its plain version")
@@ -672,6 +676,13 @@ def main() -> int:
             compare_int8(batch, batch * OBJS, V_DIM, f32, False, False)
         compare_int8(None, REGAT_TIME_BATCH * OBJS, V_DIM, f32, False, False)
         compare_int8(None, 3001, HIDDEN, f32, True, True, out_dtype=f32)
+        # the ragged edges of the kernel's tiling (two 128 x 256 tiles a
+        # cluster, 128-byte K stages): an N not a multiple of 256, a K below
+        # one stage and not a multiple of it, an M below one tile with an N
+        # below 128
+        compare_int8(None, 3001, 1000, bf16, True, True)
+        compare_int8(None, 3001, HIDDEN, f32, False, False, k=96)
+        compare_int8(None, 100, 40, bf16, True, True, out_dtype=f32, k=96)
         for batch in (REGAT_TIME_BATCH, 1003):
             for dtype, rtol, atol_rel in ((bf16, GCN_BF16_RTOL, GCN_BF16_ATOL_REL),
                                           (f32, GCN_F32_RTOL, GCN_F32_ATOL_REL)):
@@ -1006,12 +1017,28 @@ def main() -> int:
             nbytes(*gru_args, out), gru_ops(LIB_TIME_BATCH, Q_LEN, HIDDEN, EMBED), "bf16")
         library["gru_last_state_v3"] = time_ms(lambda: cudnn_gru(emb), 5)
         v2_ms = time_ms(lambda: gru_v2.gru_last_state_v2(xi, wh, bh), 5)
-        for name in ("gru_last_state", "gru_last_state_v3"):
+        for name, other, other_ms in (("gru_last_state", "gru_v2 on the same xi", v2_ms),
+                                      ("gru_last_state_v3", "torch.nn.GRU (cuDNN, bf16)",
+                                       library["gru_last_state_v3"])):
             log(f"time {name} {shape}: kernel {times[name][0]:.4f} ms, plain "
                 f"{times[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-                f"({bounds[name][1]}) [{card}]")
-        log(f"time gru_last_state_v3 {shape}: torch.nn.GRU (cuDNN, bf16) "
-            f"{library['gru_last_state_v3']:.4f} ms; gru_v2 on the same xi {v2_ms:.4f} ms "
+                f"({bounds[name][1]}); share of the bound "
+                f"{bounds[name][0] / times[name][0]:.1%}, kernel / {other} "
+                f"{times[name][0] / other_ms:.3f} ({other} {other_ms:.4f} ms) [{card}]")
+        # what bounds the GRU kernel: one full wave of 64-row blocks (one an
+        # SM) against half a wave, which asks half the L2 bandwidth for the
+        # recurrent weight; if L2 bandwidth bounded it, the half wave would
+        # take about half as long
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        wave = {}
+        for blocks in (sms, sms // 2):
+            rows = blocks * 64
+            wave_args = (xi[:rows], wh, bh)
+            wave[blocks] = time_ms(lambda: gru.gru_last_state(*wave_args), 5)
+        log(f"time gru_last_state T={Q_LEN} H={HIDDEN}: one wave of {sms} blocks (B={sms * 64}) "
+            f"{wave[sms]:.4f} ms, half a wave ({sms // 2} blocks) {wave[sms // 2]:.4f} ms "
+            f"(ratio {wave[sms // 2] / wave[sms]:.3f}); B={LIB_TIME_BATCH} is "
+            f"{-(-LIB_TIME_BATCH // 64)} blocks, {-(-LIB_TIME_BATCH // 64) / sms:.2f} waves "
             f"[{card}]")
         del emb, gru_args, xi, out, cudnn_gru
     torch.cuda.empty_cache()
@@ -1252,7 +1279,9 @@ def main() -> int:
             log(f"time {name} M={rows} K={V_DIM} N={n}: kernel {times[name][0]:.4f} ms, "
                 f"plain (f64 product) {times[name][1]:.4f} ms, torch._int_mm (the int32 "
                 f"product alone) {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-                f"({bounds[name][1]}) [{card}]")
+                f"({bounds[name][1]}); share of the bound "
+                f"{bounds[name][0] / times[name][0]:.1%}, kernel / torch._int_mm "
+                f"{times[name][0] / library[name]:.3f} [{card}]")
             del x_q, xs, w_q, w_scale, b, ops
         chain = gcn_inputs(REGAT_TIME_BATCH, bf16)
         times["gcn_chain_fused"] = time_pair(lambda: gcn_chain.gcn_chain_fused(*chain),

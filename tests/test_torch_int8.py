@@ -222,3 +222,76 @@ def test_int8_wrappers_on_other_devices_go_to_the_kernel(monkeypatch,
         int8_matmul.int8_matmul_dequant(torch.empty(10, 64, **i8),
                                         torch.empty(10, device="meta"), w_q,
                                         w_s, out_dtype=torch.float16)
+
+
+def record_launches(monkeypatch):
+    """Replace ``_build.launch`` with a recorder of (kernel, entry, args)."""
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda kernel, entry, device, *args:
+                        calls.append((kernel, entry, args)))
+    return calls
+
+
+# (entry, rows or (B, G), K, N, x_scale dtype, bias, relu, out dtype): the
+# path shapes, a ragged M, an M below one 128-row tile, an N that is not a
+# multiple of the 256-column tile, a K below one 128-byte stage, N=8
+INT8_WRAPPER_CASES = [
+    ("int8_matmul_dequant", 3001, 2048, 1024, torch.float32, True, True,
+     torch.float32),
+    ("int8_matmul_dequant", 100, 96, 1000, torch.bfloat16, True, True,
+     torch.bfloat16),
+    ("int8_matmul_dequant", 64, 32, 8, torch.float32, False, False,
+     torch.bfloat16),
+    ("int8_matmul_dequant", 8192 * 36, 2048, 2048, torch.float32, False,
+     False, torch.bfloat16),
+    ("int8_matmul_dequant_3d", (1003, 36), 2048, 1024, torch.bfloat16, True,
+     True, torch.bfloat16),
+    ("int8_matmul_dequant_3d", (2, 5), 64, 40, torch.float32, False, False,
+     torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", INT8_WRAPPER_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
+def test_int8_wrappers_hand_the_kernel_its_operands(monkeypatch, case):
+    """Off the CPU each entry passes the wgmma kernel x_q as [M, K], the
+    weight K-major as a contiguous [N, K] copy, the [M] scales, and the
+    flags (x_scale bf16, out bf16, ReLU) with M, K, N, for every shape the
+    kernel takes: any M, K a multiple of 32, N of 8."""
+    name, rows, k, n, xs_dtype, with_bias, relu, out_dtype = case
+    calls = record_launches(monkeypatch)
+    i8 = dict(device="meta", dtype=torch.int8)
+    lead = rows if isinstance(rows, tuple) else (rows,)
+    m = int(np.prod(lead))
+    bias = torch.empty(n, device="meta", dtype=out_dtype) if with_bias else None
+    out = getattr(int8_matmul, name)(
+        torch.empty(*lead, k, **i8), torch.empty(*lead, device="meta", dtype=xs_dtype),
+        torch.empty(k, n, **i8), torch.empty(n, device="meta"), bias=bias,
+        relu=relu, out_dtype=out_dtype)
+    assert out.shape == (*lead, n) and out.dtype == out_dtype
+    [(kernel, entry, args)] = calls
+    assert (kernel, entry) == (name, "int8_matmul_forward")
+    x_q, x_scale, w_nk, w_scale, b, y = args[:6]
+    assert x_q.shape == (m, k) and x_scale.shape == (m,)
+    assert w_nk.shape == (n, k) and w_nk.is_contiguous()
+    assert w_scale.shape == (n,) and y.shape == (m, n)
+    assert (b is bias) if with_bias else b == 0
+    assert args[6:] == (m, k, n, int(xs_dtype == torch.bfloat16),
+                        int(out_dtype == torch.bfloat16), int(relu))
+
+
+@pytest.mark.parametrize("k, n, match", [(48, 16, "multiple of 32"),
+                                         (64, 12, "of 8"),
+                                         (16, 16, "multiple of 32")])
+def test_int8_wrappers_refuse_before_any_launch(monkeypatch, k, n, match):
+    """What the kernel does not take (K not a multiple of 32, N not of 8)
+    is refused by the wrapper: no launch is made or counted."""
+    calls = record_launches(monkeypatch)
+    before = dict(_build.LAUNCHES)
+    i8 = dict(device="meta", dtype=torch.int8)
+    with pytest.raises(ValueError, match=match):
+        int8_matmul.int8_matmul_dequant(
+            torch.empty(10, k, **i8), torch.empty(10, device="meta"),
+            torch.empty(k, n, **i8), torch.empty(n, device="meta"))
+    assert calls == [] and _build.LAUNCHES == before

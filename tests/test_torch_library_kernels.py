@@ -271,3 +271,85 @@ def test_library_wrappers_send_other_devices_to_the_kernel(monkeypatch,
         with pytest.raises(_build.KernelBuildError):
             call()
     assert _build.LAUNCHES == before
+
+
+def record_launches(monkeypatch):
+    """Replace ``_build.launch`` with a recorder of (kernel, entry, args)."""
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda kernel, entry, device, *args:
+                        calls.append((kernel, entry, args)))
+    return calls
+
+
+# (B, T, H): the JAX test shapes, a ragged B, full width, and an H whose
+# state does not fit in shared memory (the wrapper passes it: the launch
+# refuses it on the card, before the kernel runs)
+@pytest.mark.parametrize("batch, t_len, hidden", [(16, 10, 32), (16, 6, 32),
+                                                  (1003, 10, 1024),
+                                                  (16384, 10, 1024),
+                                                  (64, 2, 2048)])
+def test_gru_v1_wrapper_hands_the_kernel_its_operands(monkeypatch, batch,
+                                                      t_len, hidden):
+    """v1 passes xi as it is, the recurrent weight gate-major ([3H, H],
+    K-major: the wgmma B operand the TMA loads), bh, and B, T, H."""
+    calls = record_launches(monkeypatch)
+    xi = torch.empty(batch, t_len, 3 * hidden, **META)
+    out = gru.gru_last_state(xi, torch.empty(hidden, 3 * hidden, **META),
+                             torch.empty(3 * hidden, **META))
+    assert out.shape == (batch, hidden) and out.dtype == torch.float32
+    [(kernel, entry, args)] = calls
+    assert (kernel, entry) == ("gru_last_state", "gru_last_state_forward")
+    assert args[0] is xi
+    assert args[1].shape == (3 * hidden, hidden) and args[1].is_contiguous()
+    assert args[2].shape == (3 * hidden,) and args[3] is out
+    assert args[4:] == (batch, t_len, hidden)
+
+
+# (B, T, E, H): the JAX test shapes (E=12 pads to 16), a ragged B at the
+# serving model's E=300 (pads to 304), an E already a multiple of 8
+@pytest.mark.parametrize("batch, t_len, e_dim, hidden", [
+    (16, 10, 12, 32), (16, 6, 12, 32), (1003, 10, 300, 1024),
+    (16384, 10, 300, 1024), (40, 3, 64, 96)])
+def test_gru_v3_wrapper_hands_the_kernel_its_operands(monkeypatch, batch,
+                                                      t_len, e_dim, hidden):
+    """v3 pads emb with zeros along E to E8, a multiple of 8 (TMA's 16-byte
+    row pitch), only where E is not one, and hands the kernel the input
+    weight gate-major and zero-padded alike ([3H, E8]), then B, T, H, E,
+    E8."""
+    calls = record_launches(monkeypatch)
+    gates, e8 = 3 * hidden, -(-e_dim // 8) * 8
+    emb = torch.empty(batch, t_len, e_dim, **META)
+    out = gru_v3.gru_last_state_v3(emb, torch.empty(e_dim, gates, **META),
+                                   torch.empty(gates, **META),
+                                   torch.empty(hidden, gates, **META),
+                                   torch.empty(gates, **META))
+    assert out.shape == (batch, hidden)
+    [(kernel, entry, args)] = calls
+    assert (kernel, entry) == ("gru_last_state_v3", "gru_last_state_v3_forward")
+    emb8, wi_t = args[0], args[1]
+    assert emb8.shape == (batch, t_len, e8) and emb8.is_contiguous()
+    assert (emb8 is emb) == (e8 == e_dim)
+    assert wi_t.shape == (gates, e8) and wi_t.is_contiguous()
+    assert args[3].shape == (gates, hidden) and args[5] is out
+    assert args[6:] == (batch, t_len, hidden, e_dim, e8)
+
+
+@pytest.mark.parametrize("hidden", [48, 100])
+def test_gru_wrappers_refuse_before_any_launch(monkeypatch, hidden):
+    """An H the kernel's 32-unit chunks do not divide is refused by both
+    wrappers: no launch is made or counted."""
+    calls = record_launches(monkeypatch)
+    before = dict(_build.LAUNCHES)
+    gates = 3 * hidden
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gru.gru_last_state(torch.empty(8, 3, gates, **META),
+                           torch.empty(hidden, gates, **META),
+                           torch.empty(gates, **META))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gru_v3.gru_last_state_v3(torch.empty(8, 3, 12, **META),
+                                 torch.empty(12, gates, **META),
+                                 torch.empty(gates, **META),
+                                 torch.empty(hidden, gates, **META),
+                                 torch.empty(gates, **META))
+    assert calls == [] and _build.LAUNCHES == before

@@ -9,266 +9,340 @@
 // What bounds it on an H100: the recurrent product, [B, H] x [H, 3H] a step
 // after the first, whose state is zero (0.93 TFLOP over the 9 other steps
 // of T=10 at B=16384, H=1024: 0.94 ms at the bf16 tensor-core peak; v3 adds
-// the [B, E] x [E, 3H] input product of every step, 0.30 TFLOP).
-// Steps are serial, and every block reads the whole 6 MB recurrent weight
-// from L2 once a step: 15.7 GB of L2 reads at B=16384 with 64-row tiles,
-// which with one block of 8 warps an SM bounds this first design.
+// the [B, E] x [E, 3H] input product of every step, 0.30 TFLOP). Steps are
+// serial and rows independent, so a block owns 64 batch rows (one wgmma M)
+// for the whole sequence and needs no grid-wide synchronisation; but then
+// each block reads the whole 6 MB recurrent weight from L2 once a step
+// (14.2 GB at B=16384), and a 64-row tile does 64 operations a byte of
+// weight, so an SM must receive ~118 bytes of weight each ns to keep its
+// tensor cores busy. What a block receives is its bytes in flight (the
+// ring: what shared memory leaves beside the 128 KB state) over the L2
+// latency; measured, half a wave of blocks takes nearly as long as a full
+// one, so that latency, not L2 bandwidth or the tensor cores, bounds this
+// design (PERF.md). It keeps as many weight bytes in flight as shared
+// memory allows and takes the barriers off the critical path.
 //
-// Design: rows of the batch are independent, so a block owns a 64-row batch
-// tile across all 3H gate columns and all T steps, and needs no grid-wide
-// synchronisation. The tile's state lives twice: its bf16 rounding (the
-// product's operand, the TPU kernel's rounding point) resident in shared
-// memory, and the f32 state in the output buffer, which only this block
-// touches. A step runs H / 64 chunks of 64 hidden units j; a chunk's 192
-// gate columns (j of r, z and n) are the product of the resident state with
-// the gate-major weight rows ([3H, H], torch's weight_hh layout), streamed
-// from L2 in 64-deep K tiles through a cp.async ring (3 stages, 2 for v3)
-// that runs on across chunks, on mma.sync m16n8k16 bf16 with f32
-// accumulation. Each thread then holds r, z and n of the same (row, j), so
-// the gate math runs in the epilogue, which updates the f32 state in place.
-// After the last chunk the new state is rounded into shared memory for the
-// next step. v3 keeps the step's embedding tile in shared memory too,
-// zero-padded along E (K) in the load, and streams the transposed input
-// weight ([3H, E] zero-padded to 64 columns) before the recurrent one; its
-// xi stays f32, not rounded to bf16. Gate math and rounding points are the
-// TPU kernels': xi and the biases upcast to f32, gate order r, z, n, f32
-// state.
+// Design (hopper.cuh's primitives): three warpgroups a block. The 64-row
+// bf16 state (the product's operand, rounded from the f32 state: the TPU
+// kernel's rounding point) stays resident in shared memory, K-major in the
+// 128-byte swizzle that wgmma's descriptor reads (128 KB at H=1024); the
+// f32 state lives in the output buffer, which only this block touches. A
+// step walks the hidden units in pairs of 32-unit chunks, one chunk a
+// consumer warpgroup. The producer (one thread of the third warpgroup)
+// streams each chunk's gate rows [r, z, n] x 32 units x 64 K of the
+// gate-major weight (torch's weight_hh layout, [3H, H] viewed [3, H, H]) by
+// TMA, 12 KB a chunk, into an mbarrier ring (4 stages of both chunks, 24 KB
+// each; v3: 3 stages of 32 KB) that runs on across chunks and steps; the
+// consumers wait on the tile's arrival alone, issue wgmma m64n96k16 (A =
+// the resident state, B = the 96 gate rows) and hand the stage back as
+// soon as they retire, so that all but one stage stay in flight. r and z take
+// their input and recurrent products in one accumulator (they enter as
+// sigmoid(x + h)); n keeps two, as it enters as tanh(xn + r hn). Each thread
+// then holds r, z and n of the same (row, unit) and runs the gate math in
+// its epilogue, which updates the f32 state in place, while the other
+// warpgroup's wgmma keeps the tensor cores busy. After the step's last chunk
+// the consumers round the f32 state into the swizzled bf16 operand.
+// v3 adds, before a chunk's recurrent stages, its input stages: the
+// embedding rows [64 x 64 K] of step t beside the chunk's rows of the
+// gate-major input weight, both by TMA, into acc (r, z) and a third
+// accumulator (xn) by wgmma m64n64k16 and m64n32k16; its xi stays f32, never
+// rounded to bf16. TMA needs 16-byte row pitches, so the wrapper pads E to
+// a multiple of 8 (E8) and TMA zero-fills each 64-deep K tile past it; the
+// last K tile of the state is zero past H. Gate math and rounding points
+// are the TPU kernels': xi and the biases upcast to f32, gate order r, z,
+// n, f32 state.
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kTileB = 64;              // batch rows of a block: 4 warps of 16
-constexpr int kTileJ = 64;              // hidden units of a chunk
-constexpr int kWarpJ = 32;              // hidden units of one warp: 4 n-tiles a gate
-constexpr int kTileN = 3 * kTileJ;      // gate columns of a chunk (r, z, n)
-constexpr int kTileK = 64;
-constexpr int kLd = kTileK + 8;         // padded row: conflict-free ldmatrix
-constexpr int kThreads = 256;           // 8 warps: 4 along rows x 2 along j
-// ring depth: three weight tiles for v1; v3's embedding tile leaves room for two
-template <bool kV3> constexpr int kStages = kV3 ? 2 : 3;
+constexpr int kTileB = 64;                      // batch rows of a block: one wgmma M
+constexpr int kWgJ = 32;                        // hidden units of a warpgroup's chunk
+constexpr int kPairJ = 2 * kWgJ;                // hidden units of a ring stage
+constexpr int kTileK = 64;                      // K of a stage: one swizzled 128-byte row
+constexpr int kThreads = 384;                   // 2 consumer warpgroups + the producer's
+constexpr int kBBytes = 3 * kWgJ * kTileK * 2;  // a chunk's [3][32][64] weight tile
+constexpr int kABytes = kTileB * kTileK * 2;    // a [64][64] operand tile (state K block, emb)
+template <bool kV3> constexpr int kStages = kV3 ? 3 : 4;
+// stage: the two chunks' weight tiles, then (v3) the embedding tile
+template <bool kV3> constexpr int kStageBytes = 2 * kBBytes + (kV3 ? kABytes : 0);
+
+__host__ __device__ inline int k_blocks(int k) { return (k + kTileK - 1) / kTileK; }
+// the shared-memory layout, from a 1024-byte aligned base: the bf16 state
+// [H / 64][64 rows][64 K] (zero past H), the ring, its barriers; above the
+// card's 227 KB a block, launch() returns cudaFuncSetAttribute's error and
+// launches nothing
+template <bool kV3>
+size_t smem_bytes(int H) {
+  return 1024 + size_t(k_blocks(H)) * kABytes + size_t(kStages<kV3>) * kStageBytes<kV3> +
+         2 * kStages<kV3> * sizeof(uint64_t);
+}
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-// 16 x 16 A fragment from a resident shared tile with a run-time row pitch
-// (in bf16; pitch / 8 odd keeps ldmatrix conflict-free)
-__device__ __forceinline__ void load_a_frag_ld(uint32_t a[4], const __nv_bfloat16* tile, int ld,
-                                               int row0, int k0, int lane) {
-  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+// two floats rounded to bf16 (round to nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// K of the state and the embeddings rounded up to whole K tiles
-__host__ __device__ inline int k_pad(int k) { return (k + kTileK - 1) / kTileK * kTileK; }
-// the shared-memory layout: resident bf16 state [kTileB, H64 + 8], the v3
-// embedding tile [kTileB, E64 + 8] (both zero past H and E), the
-// weight-tile ring; above the card's 227 KB a block, launch() returns
-// cudaFuncSetAttribute's error and launches nothing
-__host__ __device__ inline size_t h_bytes(int H) { return size_t(kTileB) * (k_pad(H) + 8) * 2; }
-__host__ __device__ inline size_t e_bytes(int E64) { return E64 ? size_t(kTileB) * (E64 + 8) * 2 : 0; }
-template <bool kV3> constexpr size_t kRingBytes = size_t(kStages<kV3>) * kTileN * kLd * 2;
-
 template <bool kV3>
-__global__ void __launch_bounds__(kThreads)
-gru_seq_kernel(const __nv_bfloat16* __restrict__ xi,    // v1: [B, T, 3H]
-               const __nv_bfloat16* __restrict__ emb,   // v3: [B, T, E]
-               const __nv_bfloat16* __restrict__ wi,    // v3: [3H, E64], zero past E
-               const __nv_bfloat16* __restrict__ bi,    // v3: [3H]
-               const __nv_bfloat16* __restrict__ wh,    // [3H, H]
-               const __nv_bfloat16* __restrict__ bh,    // [3H]
-               float* __restrict__ out,                 // [B, H]: the f32 state
-               int B, int T, int H, int E, int E64) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* es = reinterpret_cast<__nv_bfloat16*>(smem_raw + h_bytes(H));
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw + h_bytes(H) + e_bytes(E64));
-  const int ldh = k_pad(H) + 8, lde = E64 + 8;
+__global__ void __launch_bounds__(kThreads, 1)
+gru_seq_kernel(const __grid_constant__ CUtensorMap wh_map,   // [3, H, H]: w_gk [3H, H]
+               const __grid_constant__ CUtensorMap wi_map,   // v3: [3, H, E8]: wi [3H, E8]
+               const __grid_constant__ CUtensorMap emb_map,  // v3: [B, T, E8]
+               const __nv_bfloat16* __restrict__ xi,         // v1: [B, T, 3H]
+               const __nv_bfloat16* __restrict__ bi,         // v3: [3H]
+               const __nv_bfloat16* __restrict__ bh,         // [3H]
+               float* __restrict__ out,                      // [B, H]: the f32 state
+               int B, int T, int H, int E8) {
+  constexpr int S = kStages<kV3>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* hs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int kh_blocks = k_blocks(H);
+  unsigned char* ring = hs + kh_blocks * kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * kStageBytes<kV3>);
+  uint64_t* empty = full + S;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 1, warp_j = warp & 1;
-  const int g = lane >> 2, c = lane & 3;
+  const int tid = threadIdx.x, wg = warpgroup_index();
   const int b0 = blockIdx.x * kTileB;
-  const size_t G = 3 * static_cast<size_t>(H);
-  const int chunks = (H + kTileJ - 1) / kTileJ;   // the last may pass H
-  const int kx = kV3 ? E64 / kTileK : 0;       // input-weight tiles of a chunk
+  const int pairs = (H + kPairJ - 1) / kPairJ;
+  const int kx = kV3 ? k_blocks(E8) : 0;         // input stages of a chunk pair
 
-  for (int i = tid; i < kTileB * ldh; i += kThreads) hs[i] = __float2bfloat16(0.f);
-
-  for (int t = 0; t < T; ++t) {
-    if (kV3) {
-      // the step's embedding rows, zero past E and past B
-      for (int i = tid; i < kTileB * E64; i += kThreads) {
-        const int r = i / E64, k = i % E64;
-        es[r * lde + k] = (b0 + r < B && k < E)
-            ? emb[(static_cast<size_t>(b0 + r) * T + t) * E + k] : __float2bfloat16(0.f);
-      }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);      // the producer's arrival, plus the bytes
+      mbar_init(&empty[s], 2);     // one arrival from each consumer warpgroup
     }
-    // at t = 0 the state is zero; the last tile of an H not a multiple of
-    // kTileK reads zeros past H, in the state and (zero-filled) in Wh
-    const int kh = t > 0 ? k_pad(H) / kTileK : 0;
-    const int per_chunk = kx + kh;
-    const int total = chunks * per_chunk;
-    // tile `it` of the step's stream: input-weight tiles, then recurrent ones
-    auto issue = [&](int it) {
-      if (it < total) {
-        const int j0 = (it / per_chunk) * kTileJ, i = it % per_chunk;
-        const bool x = i < kx;
-        const __nv_bfloat16* w = x ? wi : wh;
-        const int ldw = x ? E64 : H, k0 = (x ? i : i - kx) * kTileK;
-        __nv_bfloat16* s = ring + (it % kStages<kV3>) * kTileN * kLd;
-        for (int idx = tid; idx < kTileN * (kTileK / 8); idx += kThreads) {
-          const int n = idx / (kTileK / 8), k = k0 + (idx % (kTileK / 8)) * 8;
-          const size_t grow = static_cast<size_t>(n / kTileJ) * H + j0 + (n % kTileJ);
-          const bool ok = k < ldw && j0 + (n % kTileJ) < H;
-          cp_async16(s + n * kLd + (idx % (kTileK / 8)) * 8, ok ? w + grow * ldw + k : w, ok);
-        }
+    mbar_init_fence();
+  }
+  for (int i = tid; i < kh_blocks * kABytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(hs)[i] = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread streams every stage of every step ----
+    if (tid == 256) {
+      tma_prefetch_map(&wh_map);
+      if (kV3) {
+        tma_prefetch_map(&wi_map);
+        tma_prefetch_map(&emb_map);
       }
-      cp_async_commit();
-    };
-
-    constexpr int kNT = kWarpJ / 8;          // n-tiles of one gate of a warp
-    float acc_x[3 * kNT][4], acc_h[3 * kNT][4];
-#pragma unroll
-    for (int i = 0; i < 3 * kNT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_x[i][e] = acc_h[i][e] = 0.f;
-
-    // the chunk's gate math: acc_*[kNT * gate + jt] hold gate (r, z, n) of
-    // hidden units j0 + 32 warp_j + 8 jt + 2c + {0, 1}, rows g and g + 8
-    auto epilogue = [&](int chunk) {
-      const int j0 = chunk * kTileJ;
-#pragma unroll
-      for (int jt = 0; jt < kNT; ++jt) {
-        const int j = j0 + warp_j * kWarpJ + jt * 8 + 2 * c;
-        if (j >= H) continue;           // H % 32 == 0: j + 1 < H too
-        float bhv[3][2], biv[3][2];
-#pragma unroll
-        for (int gate = 0; gate < 3; ++gate) {
-          const float2 bb = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(bh + gate * H + j));
-          bhv[gate][0] = bb.x;
-          bhv[gate][1] = bb.y;
-          if (kV3) {
-            const float2 ib = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(bi + gate * H + j));
-            biv[gate][0] = ib.x;
-            biv[gate][1] = ib.y;
+      int it = 0;
+      for (int t = 0; t < T; ++t) {
+        const int n = kx + (t > 0 ? kh_blocks : 0);   // at t = 0 the state is zero
+        for (int p = 0; p < pairs; ++p) {
+          const int j0 = p * kPairJ;
+          const int chunks = j0 + kWgJ < H ? 2 : 1;   // H % 32 == 0
+          for (int i = 0; i < n; ++i, ++it) {
+            const int s = it % S;
+            const bool x = i < kx;
+            mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+            mbar_arrive_expect_tx(&full[s], chunks * kBBytes + (x ? kABytes : 0));
+            unsigned char* st = ring + s * kStageBytes<kV3>;
+            for (int w = 0; w < chunks; ++w)
+              tma_load_3d(st + w * kBBytes, x ? &wi_map : &wh_map, &full[s],
+                          (x ? i : i - kx) * kTileK, j0 + w * kWgJ, 0);
+            if (x) tma_load_3d(st + 2 * kBBytes, &emb_map, &full[s], i * kTileK, t, b0);
           }
         }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns units [j0, j0 + 32) of each pair ----
+    const int lane = tid & 31, warp = (tid / 32) & 3;
+    const int g = lane >> 2, c = lane & 3;
+    const size_t G = 3 * static_cast<size_t>(H);
+    // acc: r (registers 0-15) and z (16-31), input and recurrent products
+    // together; acc_hn: n's recurrent product; acc_xn: n's input product (v3)
+    float acc[32], acc_hn[16], acc_xn[16];
+    int it = 0;
+    for (int t = 0; t < T; ++t) {
+      const int n = kx + (t > 0 ? kh_blocks : 0);
+      for (int p = 0; p < pairs; ++p) {
+        const int j0 = p * kPairJ + wg * kWgJ;
+        const bool active = j0 < H;
+        // the epilogue's inputs from device memory (v1's input gates, the
+        // old f32 state), loaded now so that their latency hides behind the
+        // chunk's stages: units j0 + 8q + 2c (+1), rows 16 warp + g (+8)
+        uint32_t x_raw[kWgJ / 8][2][3];   // bf16 pairs
+        float2 h_old[kWgJ / 8][2];
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = b0 + warp_m * 16 + g + half * 8;
-          if (row >= B) continue;
-          float xv[3][2];
-          if (kV3) {
+        for (int q = 0; q < kWgJ / 8; ++q)
 #pragma unroll
-            for (int gate = 0; gate < 3; ++gate)
+          for (int half = 0; half < 2; ++half) {
+            const int row = b0 + warp * 16 + g + half * 8, j = j0 + q * 8 + 2 * c;
+            h_old[q][half] = make_float2(0.f, 0.f);
 #pragma unroll
-              for (int e = 0; e < 2; ++e)
-                xv[gate][e] = acc_x[kNT * gate + jt][2 * half + e] + biv[gate][e];
-          } else {
-            const __nv_bfloat16* x = xi + (static_cast<size_t>(row) * T + t) * G;
+            for (int gate = 0; gate < 3; ++gate) x_raw[q][half][gate] = 0;
+            if (!active || row >= B) continue;
+            if (t > 0) h_old[q][half] = *reinterpret_cast<const float2*>(
+                           out + static_cast<size_t>(row) * H + j);
+            if (!kV3) {
+              const __nv_bfloat16* x = xi + (static_cast<size_t>(row) * T + t) * G + j;
+#pragma unroll
+              for (int gate = 0; gate < 3; ++gate)
+                x_raw[q][half][gate] = *reinterpret_cast<const uint32_t*>(x + gate * H);
+            }
+          }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc_hn[e] = acc_xn[e] = 0.f;
+        for (int i = 0; i < n; ++i, ++it) {
+          const int s = it % S;
+          mbar_wait(&full[s], (it / S) & 1);
+          if (active) {
+            const unsigned char* st = ring + s * kStageBytes<kV3>;
+            const uint64_t db = sw128_desc(st + wg * kBBytes);
+            wgmma_fence();
+            if (kV3 && i < kx) {
+              const uint64_t da = sw128_desc(st + 2 * kBBytes);
+              // the n gate's rows start 64 rows (8 KB) into the chunk tile
+              const uint64_t dn = sw128_desc(st + wg * kBBytes + 2 * kWgJ * kTileK * 2);
+#pragma unroll
+              for (int kk = 0; kk < kTileK / 16; ++kk) {
+                // +2 in the descriptor's 16-byte units = 16 bf16 further along K
+                wgmma_m64n64k16_bf16(acc, da + 2 * kk, db + 2 * kk, 1);
+                wgmma_m64n32k16_bf16(acc_xn, da + 2 * kk, dn + 2 * kk, 1);
+              }
+            } else {
+              const uint64_t da = sw128_desc(hs + (i - kx) * kABytes);
+#pragma unroll
+              for (int kk = 0; kk < kTileK / 16; ++kk)
+                wgmma_m64n96k16_bf16(acc, acc_hn, da + 2 * kk, db + 2 * kk, 1);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();   // the stage is read: hand it back at once
+          }
+          if ((tid & 127) == 0) mbar_arrive(&empty[s]);
+        }
+        if (!active) continue;
+        fence_operands(acc);
+        fence_operands(acc_hn);
+        fence_operands(acc_xn);
+
+        // the chunk's gate math
+#pragma unroll
+        for (int q = 0; q < kWgJ / 8; ++q) {
+          const int j = j0 + q * 8 + 2 * c;
+          float2 bhv[3], biv[3];
+#pragma unroll
+          for (int gate = 0; gate < 3; ++gate) {
+            bhv[gate] = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(bh + gate * H + j));
+            if (kV3)
+              biv[gate] = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(bi + gate * H + j));
+          }
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = b0 + warp * 16 + g + half * 8;
+            if (row >= B) continue;
+            float2 xv[3];
 #pragma unroll
             for (int gate = 0; gate < 3; ++gate) {
-              const float2 f = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(x + gate * H + j));
-              xv[gate][0] = f.x;
-              xv[gate][1] = f.y;
+              __nv_bfloat162 pair;
+              *reinterpret_cast<uint32_t*>(&pair) = x_raw[q][half][gate];
+              xv[gate] = __bfloat1622float2(pair);
             }
-          }
-          float* hp = out + static_cast<size_t>(row) * H + j;
-          const float2 h_old = t > 0 ? *reinterpret_cast<const float2*>(hp)
-                                     : make_float2(0.f, 0.f);
-          float h[2];
+            float* hp = out + static_cast<size_t>(row) * H + j;
+            const float2 ho = h_old[q][half];
+            float h[2];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float hr = acc_h[jt][2 * half + e] + bhv[0][e];
-            const float hz = acc_h[kNT + jt][2 * half + e] + bhv[1][e];
-            const float hn = acc_h[2 * kNT + jt][2 * half + e] + bhv[2][e];
-            const float r = sigmoidf(xv[0][e] + hr);
-            const float z = sigmoidf(xv[1][e] + hz);
-            const float n = tanhf(xv[2][e] + r * hn);
-            h[e] = (1.f - z) * n + z * (e ? h_old.y : h_old.x);
-          }
-          *reinterpret_cast<float2*>(hp) = make_float2(h[0], h[1]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 3 * kNT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_x[i][e] = acc_h[i][e] = 0.f;
-    };
-
-    if (total == 0) {
-      for (int chunk = 0; chunk < chunks; ++chunk) epilogue(chunk);
-    } else {
-      for (int s = 0; s < kStages<kV3> - 1; ++s) issue(s);
-      for (int it = 0; it < total; ++it) {
-        cp_async_wait<kStages<kV3> - 2>();
-        __syncthreads();          // tile `it` has landed; tile it - 1 is consumed
-        issue(it + kStages<kV3> - 1);
-        const __nv_bfloat16* s = ring + (it % kStages<kV3>) * kTileN * kLd;
-        const int i = it % per_chunk;
-        const bool x = i < kx;
-        const __nv_bfloat16* a_tile = x ? es : hs;
-        const int lda = x ? lde : ldh, k0 = (x ? i : i - kx) * kTileK;
-#pragma unroll
-        for (int kk = 0; kk < kTileK; kk += 16) {
-          uint32_t a[4];
-          load_a_frag_ld(a, a_tile, lda, warp_m * 16, k0 + kk, lane);
-#pragma unroll
-          for (int gate = 0; gate < 3; ++gate)
-#pragma unroll
-            for (int jp = 0; jp < kNT; jp += 2) {
-              uint32_t b[4];
-              load_b_frag2<kLd>(b, s, gate * kTileJ + warp_j * kWarpJ + jp * 8, kk, lane);
-              if (x) {
-                mma_bf16_16816(acc_x[kNT * gate + jp], a, b);
-                mma_bf16_16816(acc_x[kNT * gate + jp + 1], a, b + 2);
+            for (int e = 0; e < 2; ++e) {
+              const int a = 4 * q + 2 * half + e;
+              const float bhr = e ? bhv[0].y : bhv[0].x, bhz = e ? bhv[1].y : bhv[1].x;
+              const float bhn = e ? bhv[2].y : bhv[2].x;
+              float r, z, n_gate;
+              if (kV3) {
+                const float bir = e ? biv[0].y : biv[0].x, biz = e ? biv[1].y : biv[1].x;
+                const float bin = e ? biv[2].y : biv[2].x;
+                r = sigmoidf(acc[a] + bir + bhr);
+                z = sigmoidf(acc[16 + a] + biz + bhz);
+                n_gate = tanhf((acc_xn[a] + bin) + r * (acc_hn[a] + bhn));
               } else {
-                mma_bf16_16816(acc_h[kNT * gate + jp], a, b);
-                mma_bf16_16816(acc_h[kNT * gate + jp + 1], a, b + 2);
+                const float xr = e ? xv[0].y : xv[0].x, xz = e ? xv[1].y : xv[1].x;
+                const float xn = e ? xv[2].y : xv[2].x;
+                r = sigmoidf(xr + (acc[a] + bhr));
+                z = sigmoidf(xz + (acc[16 + a] + bhz));
+                n_gate = tanhf(xn + r * (acc_hn[a] + bhn));
               }
+              h[e] = (1.f - z) * n_gate + z * (e ? ho.y : ho.x);
             }
+            *reinterpret_cast<float2*>(hp) = make_float2(h[0], h[1]);
+          }
         }
-        if (i == per_chunk - 1) epilogue(it / per_chunk);
       }
-      cp_async_wait<0>();
+      if (t + 1 < T) {
+        // every chunk's f32 state of step t is written: round it into the
+        // swizzled operand (16-byte chunk q of row r at q ^ (r % 8))
+        named_barrier(1, 256);
+        const int row_chunks = H / 8;
+        for (int idx = tid; idx < kTileB * row_chunks; idx += 256) {
+          const int r = idx / row_chunks, k = (idx % row_chunks) * 8;
+          float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+          if (b0 + r < B) {
+            const float4* src =
+                reinterpret_cast<const float4*>(out + static_cast<size_t>(b0 + r) * H + k);
+            lo = src[0];
+            hi = src[1];
+          }
+          unsigned char* dst =
+              hs + (k / kTileK) * kABytes + r * 128 + ((((k % kTileK) / 8) ^ (r & 7)) * 16);
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                         pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+        }
+        fence_proxy_async();
+        named_barrier(1, 256);
+      }
     }
-    // every chunk's f32 state is written: round it into the resident operand
-    __syncthreads();
-    for (int i = tid; i < kTileB * (H / 2); i += kThreads) {
-      const int r = i / (H / 2), k = (i % (H / 2)) * 2;
-      float2 f = make_float2(0.f, 0.f);
-      if (b0 + r < B) f = *reinterpret_cast<const float2*>(out + static_cast<size_t>(b0 + r) * H + k);
-      *reinterpret_cast<__nv_bfloat162*>(hs + r * ldh + k) = __floats2bfloat162_rn(f.x, f.y);
-    }
-    __syncthreads();
   }
 }
 
 template <bool kV3>
 int launch(const void* xi, const void* emb, const void* wi, const void* bi, const void* wh,
-           const void* bh, void* out, int B, int T, int H, int E, int E64,
-           cudaStream_t stream) {
+           const void* bh, void* out, int B, int T, int H, int E8, cudaStream_t stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = h_bytes(H) + e_bytes(E64) + kRingBytes<kV3>;
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_seq_kernel<kV3>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const size_t smem = smem_bytes<kV3>(H);
+  CUtensorMap wh_map, wi_map, emb_map;
+  const uint32_t w_box[3] = {kTileK, kWgJ, 3};
+  const uint64_t wh_dims[3] = {uint64_t(H), uint64_t(H), 3};
+  const uint64_t wh_strides[2] = {uint64_t(H) * 2, uint64_t(H) * H * 2};
+  cudaError_t err = make_tensor_map(&wh_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, wh, wh_dims,
+                                    wh_strides, w_box);
+  wi_map = emb_map = wh_map;   // v1 reads neither
+  if (kV3 && err == cudaSuccess) {
+    const uint64_t wi_dims[3] = {uint64_t(E8), uint64_t(H), 3};
+    const uint64_t wi_strides[2] = {uint64_t(E8) * 2, uint64_t(H) * E8 * 2};
+    err = make_tensor_map(&wi_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, wi, wi_dims, wi_strides,
+                          w_box);
+    const uint64_t emb_dims[3] = {uint64_t(E8), uint64_t(T), uint64_t(B)};
+    const uint64_t emb_strides[2] = {uint64_t(E8) * 2, uint64_t(T) * E8 * 2};
+    const uint32_t emb_box[3] = {kTileK, 1, kTileB};
+    if (err == cudaSuccess)
+      err = make_tensor_map(&emb_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, emb, emb_dims,
+                            emb_strides, emb_box);
+  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gru_seq_kernel<kV3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
   if (err != cudaSuccess) {
     cudaGetLastError();   // reset it, or the next launch's check would report it
     return static_cast<int>(err);
   }
   gru_seq_kernel<kV3><<<(B + kTileB - 1) / kTileB, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(xi), static_cast<const __nv_bfloat16*>(emb),
-      static_cast<const __nv_bfloat16*>(wi), static_cast<const __nv_bfloat16*>(bi),
-      static_cast<const __nv_bfloat16*>(wh), static_cast<const __nv_bfloat16*>(bh),
-      static_cast<float*>(out), B, T, H, E, E64);
+      wh_map, wi_map, emb_map, static_cast<const __nv_bfloat16*>(xi),
+      static_cast<const __nv_bfloat16*>(bi), static_cast<const __nv_bfloat16*>(bh),
+      static_cast<float*>(out), B, T, H, E8);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -279,15 +353,17 @@ int launch(const void* xi, const void* emb, const void* wi, const void* bi, cons
 // Requires T >= 1, H % 32 == 0 and 16-byte aligned, contiguous operands.
 extern "C" int gru_last_state_forward(const void* xi, const void* w, const void* bh, void* out,
                                       int B, int T, int H, void* stream) {
-  return launch<false>(xi, nullptr, nullptr, nullptr, w, bh, out, B, T, H, 0, 0,
+  return launch<false>(xi, nullptr, nullptr, nullptr, w, bh, out, B, T, H, 0,
                        static_cast<cudaStream_t>(stream));
 }
 
-// v3: the same from emb [B, T, E] with the input weight given transposed and
-// zero-padded to wi [3H, E64] (E64 = E rounded up to 64) and bias bi [3H].
+// v3: the same from emb [B, T, E8] (E8: E rounded up to 8, zero past E) with
+// the input weight given gate-major, wi [3H, E8] (zero past E), and bias bi
+// [3H]; E is the unpadded width, which the kernel does not need.
 extern "C" int gru_last_state_v3_forward(const void* emb, const void* wi, const void* bi,
                                          const void* w, const void* bh, void* out, int B,
-                                         int T, int H, int E, int E64, void* stream) {
-  return launch<true>(nullptr, emb, wi, bi, w, bh, out, B, T, H, E, E64,
+                                         int T, int H, int E, int E8, void* stream) {
+  (void)E;
+  return launch<true>(nullptr, emb, wi, bi, w, bh, out, B, T, H, E8,
                       static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// Shared helpers for the bf16 tensor-core kernels (gru_v2.cu, feed_gemm.cu).
+// Shared helpers for the kernels on mma.sync with cp.async rings (every kernel
+// but int8_matmul.cu and gru.cu, which run on wgmma: hopper.cuh).
 #pragma once
 
 #include <cstdint>

@@ -72,7 +72,7 @@ _ENTRY_POINTS = {
     "fused_attention_forward": (_P,) * 10 + (_I,) * 6 + (_P,),
     # xi, w, bh, out, B, T, H, stream
     "gru_last_state_forward": (_P,) * 4 + (_I,) * 3 + (_P,),
-    # emb, wi, bi, w, bh, out, B, T, H, E, E32, stream
+    # emb [B, T, E8], wi [3H, E8], bi, w, bh, out, B, T, H, E, E8, stream
     "gru_last_state_v3_forward": (_P,) * 6 + (_I,) * 5 + (_P,),
 }
 

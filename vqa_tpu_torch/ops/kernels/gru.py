@@ -7,8 +7,11 @@ kernel is ``vqa_tpu_torch/csrc/gru.cu`` (shared with
 ``ops/kernels/gru_v2.py`` (gate order r, z, n; ``xi`` and ``bh`` upcast to
 f32; the state carried in f32 and rounded to ``wh``'s dtype only as the
 product operand), so the two agree on the same inputs. What sets it apart:
-one launch for all T steps, a block owning its batch rows across every
-step. Like the TPU kernel it is a library kernel: no model path calls it.
+one launch for all T steps, a block owning 64 batch rows across every
+step, its bf16 state resident in shared memory as the A operand of wgmma,
+the recurrent weight streamed by TMA through an mbarrier ring in chunks of
+32 hidden units (3 x 32 gate rows). Like the TPU kernel it is a library
+kernel: no model path calls it.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ import torch
 from vqa_tpu_torch.ops.kernels import _build
 from vqa_tpu_torch.ops.kernels.gru_v2 import gru_last_state_v2_reference
 
-# hidden units of one warp of the kernel (kWarpJ): H must be a multiple
-_WARP_J = 32
+# hidden units of one warpgroup's chunk in the kernel (kWgJ): H must be a
+# multiple
+_CHUNK_J = 32
 
 
 def gru_last_state_reference(xi: torch.Tensor, wh: torch.Tensor,
@@ -34,15 +38,16 @@ def check_recurrent(name: str, batch: int, t_len: int, gates: int,
                     device: torch.device) -> torch.Tensor:
     """Validate the recurrent operands of the sequence kernels; returns the
     weight gate-major ([3H, H], torch's ``weight_hh`` layout). An H whose
-    tiles do not fit in shared memory is refused by the launch itself."""
+    bf16 state and ring do not fit in shared memory (H=2048 and above) is
+    refused by the launch itself, before the kernel runs."""
     hidden = wh.shape[0]
     if wh.shape != (hidden, gates) or gates != 3 * hidden \
             or bh.shape != (gates,) or t_len < 1:
         raise ValueError(f"{name}: shapes [B={batch}, T={t_len}, 3H={gates}], "
                          f"wh {tuple(wh.shape)}, bh {tuple(bh.shape)}")
-    if hidden % _WARP_J:
+    if hidden % _CHUNK_J:
         raise ValueError(f"{name}: hidden {hidden} is not a multiple of "
-                         f"{_WARP_J}")
+                         f"{_CHUNK_J}")
     w_gk = wh.t().contiguous()
     for arg, t in (("wh", w_gk), ("bh", bh)):
         _build.check_operand(name, arg, t, torch.bfloat16, device)

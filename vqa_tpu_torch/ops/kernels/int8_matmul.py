@@ -2,9 +2,10 @@
 
 Counterpart of ``vqa_tpu/ops/pallas/int8_matmul.py`` ``int8_matmul_dequant``
 and ``int8_matmul_dequant_3d``; the CUDA kernel is
-``vqa_tpu_torch/csrc/int8_matmul.cu``. Both entries run the one kernel: the
-3-D entry is a [B * G, K] view of its input (a reshape, no copy), as the
-TPU kernel's ``flatten=True`` is.
+``vqa_tpu_torch/csrc/int8_matmul.cu`` (wgmma m64n256k32 on s8 operands that
+TMA loads into an mbarrier ring, a persistent grid over 128 x 256 output
+tiles). Both entries run the one kernel: the 3-D entry is a [B * G, K] view
+of its input (a reshape, no copy), as the TPU kernel's ``flatten=True`` is.
 
     y = (x_q @ w_q) -> f32 * (x_scale.f32 * w_scale) -> out_dtype
         (+ bias in out_dtype) (max 0)
@@ -21,8 +22,9 @@ import torch
 
 from vqa_tpu_torch.ops.kernels import _build
 
-# the kernel reads K in 32-byte steps (one m16n8k32 MMA) and writes column
-# pairs of 8-column MMA tiles
+# the kernel reads K in 32-byte steps (one wgmma k32; TMA zero-fills the
+# rest of its 128-byte stage) and writes column pairs of 8-column blocks of
+# the wgmma accumulator; M is any
 _K_STEP, _N_STEP = 32, 8
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,8 +78,9 @@ def _launch(kernel: str, x_q, x_scale, w_q, w_scale, bias, relu, out_dtype):
     if out_dtype not in _KINDS or x_scale.dtype not in _KINDS:
         raise TypeError(f"{kernel}: out_dtype and x_scale must be float32 or "
                         f"bfloat16, got {out_dtype} and {x_scale.dtype}")
-    # the kernel reads the weight as [N, K] (the .col operand); a w_q from
-    # quantize_weight_per_col is already the transpose of one
+    # the kernel reads the weight K-major as [N, K] (8-bit wgmma takes only
+    # K-major operands); a w_q from quantize_weight_per_col is already the
+    # transpose of one
     w_nk = w_q.t().contiguous()
     dev = x_q.device
     checks = [("x_q", x_q, torch.int8), ("x_scale", x_scale, x_scale.dtype),
@@ -88,7 +91,7 @@ def _launch(kernel: str, x_q, x_scale, w_q, w_scale, bias, relu, out_dtype):
         _build.check_operand(kernel, name, t, dt, dev)
     for name, t in (("x_q", x_q), ("w_q", w_nk)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned (TMA)")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     _build.launch(kernel, "int8_matmul_forward", dev, x_q, x_scale, w_nk,
                   w_scale, bias if bias is not None else 0, out, m, k, n,
