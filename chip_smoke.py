@@ -5,6 +5,7 @@ Run from the repository root:
 
     python3 chip_smoke.py             # the smoke run
     python3 chip_smoke.py --profile   # and torch.profiler tables of one
+                                      # B=16384 forward, one
                                       # B=4096 beam decode, one B=4096
                                       # MTL training step and one B=8192
                                       # ReGAT forward
@@ -25,6 +26,10 @@ Phases, each of which raises (exit code 1) on failure:
    entry at the GCN projections' rows and at a ragged M=3001 with bias and
    ReLU) and at the ragged edges of its tiling (N=1000, K=96, and M=100
    with N=40); gcn_chain_fused at B=8192 and 1003 in bf16 and f32;
+   dequant_matmul at the path's shape and the ragged edges of its tiling
+   (N=1000, M=100, K=64 and 80); vocab_topk_lse at R=12288 with k = 1, 3
+   and 8, and at R=3001, R=8 and V=1000 with an exact tie planted across
+   tiles and vocabulary splits, which must go to the lower index;
 4. serve: the full-width Up-Down model (bf16, ``use_pallas=True``, weights
    from a seeded generator) answers a few batches of the int8 feed made by
    the port's data layer (``vqa_tpu_torch.data``), through
@@ -37,9 +42,13 @@ Phases, each of which raises (exit code 1) on failure:
    vocab_topk_lse, gru_v2 and dequant_matmul must rise, the beams must be
    well formed, and the best beams must agree with the same model whose
    vocab kernel, and then every kernel, is swapped for its plain version;
-6. timing (for information): each kernel and its plain version, the VQA
-   forward at B=16384, and the beam decode at B=4096 (k=3, c_len=20) with
-   the kernels and on the plain path (``use_pallas=False``), by CUDA events;
+6. timing (for information): each kernel and its plain version (and
+   dequant_matmul and vocab_topk_lse beside cuBLAS's bf16 product of the
+   same shape, with their shares of the bound, and vocab_topk_lse at k = 1,
+   3 and 8), the VQA forward at B=16384, and the beam decode at B=4096
+   (k=3, c_len=20) with the kernels and on the plain path
+   (``use_pallas=False``), beside their times recorded before the wgmma
+   designs of those two kernels, by CUDA events;
 7. train: the full-width Up-Down MTL model (VQA head and BUTD caption
    decoder, uncertainty-weighted loss, dropout 0.5 / 0.2, f32 masters with
    bf16 compute, ``use_pallas=True``, Adamax lr 2e-3, clip 0.25) trains a few
@@ -121,6 +130,10 @@ SERVE_BATCH, SERVE_REQUESTS = 512, 4
 TIME_BATCH = 16384
 # the decode serving shape of scripts/bench_beam.py
 BEAM_K, C_LEN, DECODE_TIME_BATCH = 3, 20, 4096
+# the B=16384 forward and the B=4096 decode as PERF.md recorded them before
+# dequant_matmul and vocab_topk_lse ran on wgmma (chip_smoke.py runs of the
+# first designs, NVIDIA H100 80GB HBM3, 700 W), logged beside this run's
+RECORDED_FORWARD_MS, RECORDED_DECODE_MS = 24.102, 150.21
 
 # Tolerances. gru_v2: the f32 state |h| < 1; kernel and plain version sum in
 # different orders, and where that flips the bf16 rounding of an h operand,
@@ -403,6 +416,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print torch.profiler tables of one "
+                             f"B={TIME_BATCH} forward, one "
                              f"B={DECODE_TIME_BATCH} beam decode and one "
                              f"B={TRAIN_TIME_BATCH} training step")
     args = parser.parse_args()
@@ -465,9 +479,9 @@ def main() -> int:
         bh = ((torch.rand(3 * HIDDEN, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
         return xi, wh, bh
 
-    def gemm_inputs(rows: int):
-        x_q, scale = int8_feed(rows, V_DIM)
-        w = ((torch.rand(V_DIM, HIDDEN, device=dev, generator=gen) * 2 - 1) * V_DIM ** -0.5).to(bf16)
+    def gemm_inputs(rows: int, k: int = V_DIM, n: int = HIDDEN):
+        x_q, scale = int8_feed(rows, k)
+        w = ((torch.rand(k, n, device=dev, generator=gen) * 2 - 1) * k ** -0.5).to(bf16)
         return x_q, scale, w
 
     def pool_inputs(batch: int):
@@ -475,25 +489,26 @@ def main() -> int:
         att = torch.softmax(torch.randn(batch, OBJS, device=dev, generator=gen), dim=1)
         return (att * scale.view(batch, OBJS).float()).to(bf16), x_q.view(batch, OBJS, V_DIM)
 
-    def vocab_inputs(rows: int, ties: bool):
+    def vocab_inputs(rows: int, ties: bool, vocab: int = NTOKEN):
         # decoder states lie in (-1, 1); the head keeps torch's Linear init
         h = (torch.rand(rows, HIDDEN, device=dev, generator=gen) * 2 - 1).to(bf16)
         bound = HIDDEN ** -0.5
-        w = ((torch.rand(NTOKEN, HIDDEN, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
-        b = ((torch.rand(NTOKEN, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
+        w = ((torch.rand(vocab, HIDDEN, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
+        b = ((torch.rand(vocab, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
         if ties:
-            # two equal columns far above the rest: the exact tie must go to
-            # the lower index, on every row
-            w[NTOKEN - 7] = w[11]
-            b[NTOKEN - 7] = b[11] = 8.0
+            # two equal columns far above the rest, in different 128-column
+            # tiles and (at V=20000) different vocabulary splits of the
+            # kernel: the exact tie must go to the lower index, on every row
+            w[vocab - 7] = w[11]
+            b[vocab - 7] = b[11] = 8.0
         return h, w, b
 
-    def compare_vocab(rows: int, ties: bool, k: int) -> None:
-        h, w, b = vocab_inputs(rows, ties)
+    def compare_vocab(rows: int, ties: bool, k: int, vocab: int = NTOKEN) -> None:
+        h, w, b = vocab_inputs(rows, ties, vocab)
         vals, idx, lse = vocab_topk.vocab_topk_lse(h, w, b, k)
         p_vals, p_idx, p_lse = vocab_topk.vocab_topk_lse_reference(h, w, b, k)
         logits = torch.matmul(h.float(), w.float().t()) + b.float()
-        shape = f"R={rows} H={HIDDEN} V={NTOKEN} k={k}{' ties' if ties else ''}"
+        shape = f"R={rows} H={HIDDEN} V={vocab} k={k}{' ties' if ties else ''}"
         compare("vocab_topk_lse", vals, p_vals, VOCAB_ATOL, VOCAB_RTOL, shape + " vals")
         compare("vocab_topk_lse", lse, p_lse, VOCAB_ATOL, VOCAB_RTOL, shape + " lse")
         tol = VOCAB_ATOL + VOCAB_RTOL * logits.abs().amax(dim=1)
@@ -511,8 +526,8 @@ def main() -> int:
         require(not off.any().item(), f"vocab_topk_lse {shape}: an index is "
                 "not where its value is")
         if ties:
-            require(bool((idx[:, :2] == torch.tensor([11, NTOKEN - 7], device=dev,
-                                                     dtype=idx.dtype)).all()),
+            want_idx = torch.tensor([11, vocab - 7][:k], device=dev, dtype=idx.dtype)
+            require(bool((idx[:, :min(k, 2)] == want_idx).all()),
                     f"vocab_topk_lse {shape}: an exact tie did not go to the "
                     "lower index")
 
@@ -654,19 +669,35 @@ def main() -> int:
             compare("gru_v2", gru_v2.gru_last_state_v2(xi, wh, bh),
                     gru_v2.gru_last_state_v2_reference(xi, wh, bh),
                     GRU_ATOL, 0.0, f"B={batch} T={Q_LEN} H={HIDDEN}")
-        for rows in (1024 * OBJS, 1000 * OBJS + 5):
-            x_q, scale, w = gemm_inputs(rows)
+        # the path's shape and a ragged M, then the ragged edges of the
+        # kernel's tiling (128 x 256 tiles, 64-deep K stages): an N not a
+        # multiple of 256, an M below one tile, K of one stage and of a stage
+        # and a quarter
+        for rows, k, n in ((1024 * OBJS, V_DIM, HIDDEN), (1000 * OBJS + 5, V_DIM, HIDDEN),
+                           (3001, V_DIM, 1000), (100, V_DIM, HIDDEN), (3001, 64, HIDDEN),
+                           (3001, 80, 1000)):
+            x_q, scale, w = gemm_inputs(rows, k, n)
             compare("dequant_matmul", feed_gemm.dequant_matmul(x_q, scale, w),
                     feed_gemm.dequant_matmul_reference(x_q, scale, w),
-                    BF16_ATOL, BF16_RTOL, f"M={rows} K={V_DIM} N={HIDDEN}")
+                    BF16_ATOL, BF16_RTOL, f"M={rows} K={k} N={n}")
         for batch in (1024, 1003):
             w, x_q = pool_inputs(batch)
             compare("pool_int8", lazyv_pool.pool_int8(w, x_q),
                     lazyv_pool.pool_int8_reference(w, x_q),
                     BF16_ATOL, BF16_RTOL, f"B={batch} N={OBJS} D={V_DIM}")
-        # the beam step's rows R = B x k at B=4096, and a ragged R
-        for rows, ties in ((DECODE_TIME_BATCH * BEAM_K, False), (1000 * BEAM_K + 1, True)):
-            compare_vocab(rows, ties, BEAM_K)
+        # the beam step's rows R = B x k at B=4096 (at k = 1, 3 and 8, the
+        # ends of the kernel's k), a ragged R, then the ragged edges of its
+        # tiling (128-row bands, 128-column tiles, vocabulary splits): an R
+        # below one band, a V not a multiple of 128 (ties across its tiles)
+        decode_rows = DECODE_TIME_BATCH * BEAM_K
+        for rows, ties, k, vocab in ((decode_rows, False, BEAM_K, NTOKEN),
+                                     (decode_rows, False, 1, NTOKEN),
+                                     (decode_rows, False, 8, NTOKEN),
+                                     (1000 * BEAM_K + 1, True, BEAM_K, NTOKEN),
+                                     (8, True, BEAM_K, NTOKEN),
+                                     (decode_rows, True, BEAM_K, 1000),
+                                     (1000 * BEAM_K + 1, True, 8, 1000)):
+            compare_vocab(rows, ties, k, vocab)
         # the ReGAT path: the v-projection (bf16 feed scales, bias, ReLU)
         # and a GCN projection (quantize_rows' f32 scales) on the 3-D entry,
         # the GCN projections' rows and a ragged M on the 2-D one
@@ -802,7 +833,8 @@ def main() -> int:
                 f"best beams agree {agree_all:.4f} < {BEAM_AGREE_ALL}")
 
     # -- 6. timing ----------------------------------------------------------
-    times, bounds = {}, {}
+    # times, bounds, and the one PyTorch call timed beside a kernel
+    times, bounds, library = {}, {}, {}
     with torch.inference_mode():
         xi, wh, bh = gru_inputs(TIME_BATCH)
         times["gru_v2"] = time_pair(lambda: gru_v2.gru_last_state_v2(xi, wh, bh),
@@ -817,7 +849,11 @@ def main() -> int:
         bounds["dequant_matmul"] = bound(
             nbytes(x_q, scale, w, feed_gemm.dequant_matmul(x_q, scale, w)),
             2.0 * TIME_BATCH * OBJS * V_DIM * HIDDEN, "bf16")
-        del x_q, scale, w
+        # the yardstick: cuBLAS's bf16 product of the same shape on the
+        # activation already dequantized (the product alone)
+        x_deq = x_q.to(bf16) * scale[:, None]
+        library["dequant_matmul"] = time_ms(lambda: torch.matmul(x_deq, w), 5)
+        del x_q, scale, w, x_deq
         w, x_q = pool_inputs(TIME_BATCH)
         times["pool_int8"] = time_pair(lambda: lazyv_pool.pool_int8(w, x_q),
                                        lambda: lazyv_pool.pool_int8_reference(w, x_q), 10)
@@ -835,17 +871,32 @@ def main() -> int:
         bounds["vocab_topk_lse"] = bound(
             nbytes(h, w, b, *vocab_topk.vocab_topk_lse(h, w, b, BEAM_K)),
             2.0 * rows * HIDDEN * NTOKEN, "bf16")
+        # the yardstick: cuBLAS's bf16 h @ w.T of the same shape (the
+        # product alone, its [R, V] logits written out)
+        library["vocab_topk_lse"] = time_ms(lambda: torch.matmul(h, w.t()), 10)
+
         def unfused_head():
             logits = torch.matmul(h, w.t()) + b
             return vocab_topk.topk_first(logits, BEAM_K), torch.logsumexp(logits, -1)
 
         unfused_ms = time_ms(unfused_head, 10)
+        # the same call at k = 1 and 8: the spread is what the top-k part of
+        # the epilogue costs (the product and the logsumexp do not change)
+        by_k = {k: time_ms(lambda: vocab_topk.vocab_topk_lse(h, w, b, k), 10)
+                for k in (1, BEAM_K, 8)}
         del h, w, b
         log(f"time vocab_topk_lse R={rows} H={HIDDEN} V={NTOKEN} k={BEAM_K}: "
             f"kernel {times['vocab_topk_lse'][0]:.4f} ms, plain (f32) "
             f"{times['vocab_topk_lse'][1]:.4f} ms, the unfused bf16 head of "
             f"use_pallas=False (cuBLAS, topk_first, logsumexp) "
-            f"{unfused_ms:.4f} ms [{card}]")
+            f"{unfused_ms:.4f} ms; the kernel at k = "
+            + ", ".join(f"{k}: {ms:.4f}" for k, ms in by_k.items()) + f" ms [{card}]")
+        for name in ("dequant_matmul", "vocab_topk_lse"):
+            k_ms = times[name][0]
+            log(f"time {name}: kernel {k_ms:.4f} ms, {bounds[name][0] / k_ms:.3f} of "
+                f"its bound ({bounds[name][0]:.4f} ms, {bounds[name][1]}), "
+                f"{k_ms / library[name]:.3f} of cuBLAS's bf16 product of the same "
+                f"shape alone ({library[name]:.4f} ms) [{card}]")
 
         plain_model = set_model(**dims, use_pallas=False).to(device=dev, dtype=bf16).eval()
         plain_model.load_state_dict(model.state_dict())
@@ -856,7 +907,10 @@ def main() -> int:
         fwd_k, fwd_p = time_pair(lambda: model(batch), lambda: plain_model(batch), 3)
         log(f"time forward B={TIME_BATCH} int8 feed bf16: kernels {fwd_k:.3f} ms "
             f"({TIME_BATCH / fwd_k * 1e3:.1f} q/s), plain {fwd_p:.3f} ms "
-            f"({TIME_BATCH / fwd_p * 1e3:.1f} q/s) [{card}]")
+            f"({TIME_BATCH / fwd_p * 1e3:.1f} q/s); recorded before dequant_matmul's "
+            f"wgmma design: {RECORDED_FORWARD_MS} ms (PERF.md) [{card}]")
+        if args.profile:
+            profile_run("forward", lambda: model(batch), 1)
         del plain_model, batch, x_q, scale
 
         dec_plain = set_model(**dec_dims, use_pallas=False).to(device=dev, dtype=bf16).eval()
@@ -876,13 +930,13 @@ def main() -> int:
             f"(use_pallas=False) {dec_p:.2f} ms "
             f"({DECODE_TIME_BATCH / dec_p * 1e3:.1f} captions/s); kernels with "
             f"the unfused head {dec_u:.2f} ms "
-            f"({DECODE_TIME_BATCH / dec_u * 1e3:.1f} captions/s) [{card}]")
+            f"({DECODE_TIME_BATCH / dec_u * 1e3:.1f} captions/s); recorded before "
+            f"vocab_topk_lse's wgmma design: {RECORDED_DECODE_MS} ms (PERF.md) [{card}]")
         if args.profile:
             profile_run("decode", lambda: beam(batch), C_LEN - 1)
 
     # -- 12. the library kernels against their plain versions ---------------
     # (run here, while the serving model whose weights they take is alive)
-    library = {}
 
     def lib_attention_inputs(batch, n, dv, h, hq):
         """Attention operands: unit-normal boxes, a question in (-1, 1), Linear
@@ -1466,8 +1520,10 @@ def main() -> int:
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 # torch._int_mm gives the int32 product of the int8 GEMM
-                # alone, cuDNN's GRU the function of gru_last_state_v3; no
-                # single PyTorch call computes any other of these
+                # alone, cuBLAS's bf16 matmul the product of dequant_matmul
+                # and vocab_topk_lse alone, cuDNN's GRU the function of
+                # gru_last_state_v3; no single PyTorch call computes any
+                # other of these
                 "library_ms": library.get(name)}
                for name in KERNELS]
     print(card)

@@ -172,7 +172,7 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         gru_v2.gru_last_state_v2(torch.empty(8, 3, 60, **meta),
                                  torch.empty(20, 60, **meta),
                                  torch.empty(60, **meta))
-    with pytest.raises(ValueError, match="multiple of 64"):
+    with pytest.raises(ValueError, match="multiple of 16"):
         feed_gemm.dequant_matmul(
             torch.empty(10, 40, device="meta", dtype=torch.int8),
             torch.empty(10, **meta), torch.empty(40, 16, **meta))
@@ -188,10 +188,119 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
                torch.empty(100, **meta))
     with pytest.raises(ValueError, match="k=9"):
         vocab_topk.vocab_topk_lse(h, w, b, 9)
-    with pytest.raises(ValueError, match="multiple of 64"):
+    with pytest.raises(ValueError, match="multiple of 8"):
         vocab_topk.vocab_topk_lse(torch.empty(9, 60, **meta),
                                   torch.empty(100, 60, **meta), b, 3)
     with pytest.raises(ValueError, match="shapes"):
         vocab_topk.vocab_topk_lse(h, w.t(), b, 3)
     with pytest.raises(TypeError, match="bfloat16"):
         vocab_topk.vocab_topk_lse(h, w, torch.empty(100, device="meta"), 3)
+
+
+def _no_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+
+
+def _meta_int8(*shape, offset=0):
+    """An int8 meta tensor whose data starts ``offset`` bytes into its
+    storage (contiguous)."""
+    n = int(np.prod(shape))
+    return torch.empty(n + offset, device="meta", dtype=torch.int8)[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("case", [
+    # TMA zero-fills the last 64-deep K stage: K needs only 16-byte rows
+    "dequant K=48", "dequant K=16",
+    # and H only 16-byte rows for the vocab head
+    "vocab H=72", "vocab H=8",
+    # the k range's ends, and R below one 128-row band
+    "vocab k=1", "vocab k=8", "vocab R=1",
+])
+def test_rules_the_wgmma_kernels_take_reach_the_kernel(monkeypatch, tmp_path, case):
+    """Shapes the TMA-fed kernels take pass every check and go to the build,
+    which raises here (no nvcc) and counts no launch."""
+    _no_nvcc(monkeypatch, tmp_path)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    kernel, arg = case.split()
+    key, value = arg.split("=")
+    value = int(value)
+    if kernel == "dequant":
+        call = lambda: feed_gemm.dequant_matmul(
+            _meta_int8(10, value), torch.empty(10, **meta),
+            torch.empty(value, 16, **meta))
+    else:
+        dims = {"R": 9, "H": 64, "k": 3}
+        dims[key] = value
+        call = lambda: vocab_topk.vocab_topk_lse(
+            torch.empty(dims["R"], dims["H"], **meta),
+            torch.empty(100, dims["H"], **meta), torch.empty(100, **meta),
+            dims["k"])
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError):
+        call()
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", [
+    "dequant N", "dequant K", "dequant align", "vocab k=0", "vocab k>V",
+    "vocab align",
+])
+def test_wgmma_kernel_wrappers_refuse_before_any_build(monkeypatch, tmp_path, case):
+    """What the redesigned kernels cannot take raises ValueError before the
+    library is built: N not a multiple of 8, K not of 16, an x_q or h that
+    does not start on a 16-byte boundary (TMA), k outside [1, min(8, V)]."""
+    _no_nvcc(monkeypatch, tmp_path)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    calls = {
+        "dequant N": (lambda: feed_gemm.dequant_matmul(
+            _meta_int8(10, 64), torch.empty(10, **meta),
+            torch.empty(64, 12, **meta)), "N=12"),
+        "dequant K": (lambda: feed_gemm.dequant_matmul(
+            _meta_int8(10, 24), torch.empty(10, **meta),
+            torch.empty(24, 16, **meta)), "K=24"),
+        "dequant align": (lambda: feed_gemm.dequant_matmul(
+            _meta_int8(10, 64, offset=1), torch.empty(10, **meta),
+            torch.empty(64, 16, **meta)), "16-byte"),
+        "vocab k=0": (lambda: vocab_topk.vocab_topk_lse(
+            torch.empty(9, 64, **meta), torch.empty(100, 64, **meta),
+            torch.empty(100, **meta), 0), "k=0"),
+        "vocab k>V": (lambda: vocab_topk.vocab_topk_lse(
+            torch.empty(9, 64, **meta), torch.empty(5, 64, **meta),
+            torch.empty(5, **meta), 6), r"k=6 must lie in \[1, 5\]"),
+        "vocab align": (lambda: vocab_topk.vocab_topk_lse(
+            torch.empty(9 * 64 + 1, **meta)[1:].view(9, 64),
+            torch.empty(100, 64, **meta), torch.empty(100, **meta), 3),
+            "16-byte"),
+    }
+    call, match = calls[case]
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+@pytest.mark.parametrize("rows,vocab,sms", [
+    (12288, 20000, 132), (3001, 20000, 132), (8, 20000, 132),
+    (8, 1000, 132), (12288, 1000, 132), (1, 1, 132), (4096, 20000, 114),
+    (512 * 3, 20000, 132),
+])
+def test_vocab_topk_plan_covers_the_vocabulary(rows, vocab, sms):
+    """The plan's splits cover every vocabulary tile once, fit the partial
+    buffers, and the grid is at most one block an SM with two units (one a
+    consumer warpgroup) for each block."""
+    tps, splits, grid = vocab_topk._plan(rows, vocab, sms)
+    n_tiles = -(-vocab // vocab_topk._TILE_V)
+    bands = -(-rows // vocab_topk._TILE_R)
+    assert 1 <= splits <= vocab_topk._MAX_SPLITS
+    assert (splits - 1) * tps < n_tiles <= splits * tps
+    assert grid == min(sms, -(-bands * splits // 2))
+    assert 1 <= grid <= sms
+
+
+def test_vocab_topk_plan_at_the_decode_shape():
+    """At the B=4096, k=3 decode (R = 12288, V = 20000) on a 132-SM H100:
+    8 splits of 20 tiles, 768 units, 6 (three pairs) on each of 132 blocks;
+    at R = 8 the splits fill the card instead (53 units of 3 tiles)."""
+    assert vocab_topk._plan(12288, 20000, 132) == (20, 8, 132)
+    assert vocab_topk._plan(8, 20000, 132) == (3, 53, 27)

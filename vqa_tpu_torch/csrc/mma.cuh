@@ -1,5 +1,6 @@
 // Shared helpers for the kernels on mma.sync with cp.async rings (every kernel
-// but int8_matmul.cu and gru.cu, which run on wgmma: hopper.cuh).
+// but int8_matmul.cu, gru.cu, feed_gemm.cu and vocab_topk.cu, which run on
+// wgmma: hopper.cuh).
 #pragma once
 
 #include <cstdint>

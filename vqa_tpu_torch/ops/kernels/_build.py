@@ -47,11 +47,8 @@ _ENTRY_POINTS = {
     # w, x_q, out, B, N, D, stream
     "pool_int8_forward": (_P, _P, _P, _I, _I, _I, _P),
     # h, w, b, part_v, part_i, part_ms, vals, idx, lse, R, H, V, k,
-    # tiles_per_split, stream
-    "vocab_topk_lse_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _P),
-    # R, V, k, *tiles_per_split (no stream: a host-side query)
-    "vocab_topk_lse_plan": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
+    # tiles_per_split, grid, stream
+    "vocab_topk_lse_forward": (_P,) * 9 + (_I,) * 6 + (_P,),
     # vp, pool, w, qp, k, att, att_v, mask, seed, t, B, objs, H, D,
     # att_scale, thresh, act, pool_kind, stream
     "decode_att_fwd": (_P,) * 8 + (_U, _I, _I, _I, _I, _I, _F, _I, _I, _I,

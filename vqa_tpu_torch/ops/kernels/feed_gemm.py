@@ -1,9 +1,14 @@
 """Int8-feed dequant fused into a bf16 GEMM: the int8 feed's v-projection.
 
 Counterpart of ``vqa_tpu/ops/pallas/feed_gemm.py`` ``dequant_matmul``; the
-CUDA kernel is ``vqa_tpu_torch/csrc/feed_gemm.cu``. The dequantized
-activation ``x_q * scale`` exists only as the GEMM operand, so the kernel
-forms it tile by tile in shared memory and never writes it to device memory.
+CUDA kernel is ``vqa_tpu_torch/csrc/feed_gemm.cu`` (wgmma m64n256k16 on
+bf16 operands in an mbarrier ring: TMA loads w and the int8 x_q, and each
+consumer warpgroup dequantizes its rows of an int8 stage into the swizzled
+bf16 A that its wgmma read, a persistent grid over 128 x 256 output
+tiles). The
+dequantized activation ``x_q * scale`` exists only as the GEMM operand, so
+the kernel forms it stage by stage in shared memory and never writes it to
+device memory.
 Rounding follows the TPU kernel: the product ``x_q.to(bf16) * scale.to(bf16)``
 is rounded to bf16 before the GEMM, which accumulates in f32; the output is
 ``w``'s dtype.
@@ -15,8 +20,10 @@ import torch
 
 from vqa_tpu_torch.ops.kernels import _build
 
-# the kernel's K tile
-_TILE_K = 64
+# the kernel reads K in 64-deep stages, but x_q's rows need only be whole
+# 16-byte TMA rows (TMA zero-fills the last stage past K); it writes column
+# pairs of 8-column blocks of the wgmma accumulator; M is any
+_K_STEP, _N_STEP = 16, 8
 
 
 def dequant_matmul_reference(x_q: torch.Tensor, x_scale: torch.Tensor,
@@ -33,8 +40,8 @@ def dequant_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     [M, K] activation in device memory.
 
     CPU tensors run :func:`dequant_matmul_reference`. CUDA tensors launch the
-    kernel, which takes a bf16 ``w``, K a multiple of 64 and N a multiple of
-    8, and masks ragged M and N; anything else raises. The kernel reads the
+    kernel, which takes a bf16 ``w``, K a multiple of 16 and N a multiple of
+    8, and masks ragged M, N and K; anything else raises. The kernel reads the
     weight as [N, K] (torch's Linear layout): pass ``weight.t()`` and no copy
     is made.
     """
@@ -45,14 +52,16 @@ def dequant_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     if w.shape != (k, n) or x_scale.shape != (m,):
         raise ValueError(f"dequant_matmul: shapes x_q {tuple(x_q.shape)}, "
                          f"x_scale {tuple(x_scale.shape)}, w {tuple(w.shape)}")
-    if k % _TILE_K or n % 8:
+    if k % _K_STEP or n % _N_STEP:
         raise ValueError(f"dequant_matmul: K={k} must be a multiple of "
-                         f"{_TILE_K} and N={n} of 8")
+                         f"{_K_STEP} and N={n} of {_N_STEP}")
     w_nk = w.t().contiguous()
     scale = x_scale.to(w.dtype)
     for name, t, dt in (("x_q", x_q, torch.int8), ("x_scale", scale, w.dtype),
                         ("w", w_nk, torch.bfloat16)):
         _build.check_operand("dequant_matmul", name, t, dt, x_q.device)
+    if x_q.data_ptr() % 16:
+        raise ValueError("dequant_matmul: x_q must be 16-byte aligned (TMA)")
     out = torch.empty((m, n), dtype=w.dtype, device=x_q.device)
     _build.launch("dequant_matmul", "dequant_matmul_forward", x_q.device,
                   x_q, scale, w_nk, out, m, k, n)

@@ -5,23 +5,59 @@ CUDA kernel is ``vqa_tpu_torch/csrc/vocab_topk.cu``. ``logits = h @ w.T + b``
 with f32 products and sums (bf16 operands are exact in f32) and the bias
 added in f32, then the k largest logits of each row with their vocabulary
 indices, ties to the lowest index as ``lax.top_k``, and the row's
-logsumexp. The kernel never forms the [R, V] logits.
+logsumexp. The kernel never forms the [R, V] logits: wgmma on 128 x 128
+logit tiles that TMA loads into an mbarrier ring, its two consumer
+warpgroups in ping-pong so that one's top-k and logsumexp epilogue overlaps
+the other's products, over (row band, vocabulary split) units that
+:func:`_plan` sizes; a second small kernel merges the splits.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
 from vqa_tpu_torch.ops.kernels import _build
 
-# the kernel's K step, and its largest k
-_TILE_K = 64
-_MAX_K = 8
-# vocabulary columns per kernel tile
+# copies of the kernel's constants: H's step (TMA reads 16-byte rows and
+# zero-fills the last 64-deep K stage past H), the rows of h and vocabulary
+# rows of w of a logit tile, the largest k, and the most vocabulary splits
+# (the partial buffers' first dimension)
+_H_STEP = 8
+_TILE_R = 128
 _TILE_V = 128
+_MAX_K = 8
+_MAX_SPLITS = 64
+# the share of a tile's time that its epilogue adds where it overlaps no
+# other warpgroup's products
+_LONE_UNIT = 0.15
+
+
+def _plan(rows: int, vocab: int, sms: int) -> Tuple[int, int, int]:
+    """(tiles_per_split, splits, grid) for the kernel on a card of ``sms``
+    SMs. Work is cut into units of (128-row band, vocabulary split); a block
+    takes units in pairs, one per consumer warpgroup, and its two
+    warpgroups share its tensor cores, so a block's time is about its units
+    times (tiles a split + 1, for the unit's first loads and final merge),
+    and a unit left without a partner also pays its epilogue, which then
+    overlaps nothing (about 15% of a tile). Picks the tiles a split that
+    makes the busiest block's time least, the fewer splits on a tie; the
+    grid is one block an SM, at most one per pair of units."""
+    bands = -(-rows // _TILE_R)
+    n_tiles = -(-vocab // _TILE_V)
+    best = None
+    for tps in range(1, n_tiles + 1):
+        splits = -(-n_tiles // tps)
+        if splits > _MAX_SPLITS or -(-n_tiles // splits) != tps:
+            continue
+        units = bands * splits
+        grid = min(sms, -(-units // 2))
+        per_block = -(-units // grid)
+        cost = (per_block + _LONE_UNIT * (per_block % 2)) * (tps + 1)
+        if best is None or cost <= best[0]:
+            best = (cost, tps, splits, grid)
+    return best[1:]
 
 
 def topk_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,8 +95,8 @@ def vocab_topk_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int
     layout), b [V].
 
     CPU tensors run :func:`vocab_topk_lse_reference`. CUDA tensors launch
-    the kernel, which takes bf16 operands, 1 <= k <= 8, H a multiple of 64
-    and V >= k, and masks ragged R and V; anything else raises.
+    the kernel, which takes bf16 operands, 1 <= k <= 8, H a multiple of 8
+    and V >= k, and masks ragged R, V and H; anything else raises.
     """
     if h.device.type == "cpu":
         return vocab_topk_lse_reference(h, w, b, k)
@@ -72,26 +108,20 @@ def vocab_topk_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int
     if not 1 <= k <= min(_MAX_K, vocab):
         raise ValueError(f"vocab_topk_lse: k={k} must lie in [1, "
                          f"{min(_MAX_K, vocab)}]")
-    if hidden % _TILE_K:
+    if hidden % _H_STEP:
         raise ValueError(f"vocab_topk_lse: H={hidden} must be a multiple of "
-                         f"{_TILE_K}")
+                         f"{_H_STEP}")
     for name, t in (("h", h), ("w", w), ("b", b)):
         _build.check_operand("vocab_topk_lse", name, t, torch.bfloat16,
                              h.device)
     for name, t in (("h", h), ("w", w)):
-        if t.data_ptr() % 16:   # the kernel loads their rows by 16 bytes
+        if t.data_ptr() % 16:   # TMA reads them from 16-byte boundaries
             raise ValueError(f"vocab_topk_lse: {name} must start on a "
                              "16-byte boundary")
     dev = h.device
-    lib = _build.library()
-    tiles = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        rc = lib.vocab_topk_lse_plan(rows, vocab, k, ctypes.byref(tiles))
-    if rc != 0:
-        raise RuntimeError(f"vocab_topk_lse: CUDA error {rc} in the launch "
-                           f"plan: {lib.vqa_kernels_error_string(rc).decode()}")
-    n_tiles = -(-vocab // _TILE_V)
-    splits = -(-n_tiles // tiles.value)
+    _build.library()   # built (or raising) before the card is asked its SMs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tps, splits, grid = _plan(rows, vocab, sms)
     part_v = torch.empty((splits, rows, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((splits, rows, k), dtype=torch.int32, device=dev)
     part_ms = torch.empty((splits, rows, 2), dtype=torch.float32, device=dev)
@@ -100,5 +130,5 @@ def vocab_topk_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int
     lse = torch.empty((rows, 1), dtype=torch.float32, device=dev)
     _build.launch("vocab_topk_lse", "vocab_topk_lse_forward", dev, h, w, b,
                   part_v, part_i, part_ms, vals, idx, lse, rows, hidden,
-                  vocab, k, tiles.value)
+                  vocab, k, tps, grid)
     return vals, idx, lse
