@@ -17,7 +17,10 @@ Phases, each of which raises (exit code 1) on failure:
 2. build: compiles the port's CUDA kernels from ``vqa_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (ragged ones included), within a stated tolerance;
-   the three decode-attention kernels at B=4096 and B=1003 in four input
+   gru_v2 at B=512, 1000, 4096, 8192 and 16384, at a B that reaches each
+   cluster size its plan can choose (16 where the card schedules 16-block
+   clusters) and at H=2048, whose state lives in device memory; the three
+   decode-attention kernels at B=512, 1003 and 4096 in four input
    regimes (f32 over an f32 or an int8 payload, bf16 over a bf16 payload,
    bf16 over an int8 payload with factored weights), with and without
    dropout, and the keep mask the forward kernel emits equal to
@@ -42,7 +45,9 @@ Phases, each of which raises (exit code 1) on failure:
    vocab_topk_lse, gru_v2 and dequant_matmul must rise, the beams must be
    well formed, and the best beams must agree with the same model whose
    vocab kernel, and then every kernel, is swapped for its plain version;
-6. timing (for information): each kernel and its plain version (and
+6. timing (for information): gru_v2 at B=512, 4096, 8192 and 16384 with
+   its plan's cluster size, its share of the bound and its ratio to
+   gru_last_state v1 on the same xi; each kernel and its plain version (and
    dequant_matmul and vocab_topk_lse beside cuBLAS's bf16 product of the
    same shape, with their shares of the bound, and vocab_topk_lse at k = 1,
    3 and 8), the VQA forward at B=16384, and the beam decode at B=4096
@@ -59,8 +64,9 @@ Phases, each of which raises (exit code 1) on failure:
 8. train, kernels against plain versions: the gradients of one step with the
    kernels and with every kernel swapped for its plain version (the same
    Philox masks), in f32 and then in bf16, within stated tolerances;
-9. train timing (for information): each decode-attention kernel and its
-   plain version at B=4096, and the training step at B=4096 (19 decoder
+9. train timing (for information): decode_att_fwd at the path's B=512,
+   each decode-attention kernel and its plain version at B=4096, and the
+   training step at B=4096 (19 decoder
    steps) with the kernels and on the plain path (``use_pallas=False``), by
    CUDA events, with its peak device memory;
 10. ReGAT: the full-width ReGAT model (spatial corr-GCN, one layer, bf16,
@@ -86,11 +92,12 @@ Phases, each of which raises (exit code 1) on failure:
    ``MultiplyAttention`` (``weight_g / ||weight_v||``), also held against
    that module's softmax on the dense bf16 feed and the pooling over it;
    the GRUs on its question GRU and embedded questions, v1 also against
-   gru_v2 on the same input gates; then each timed against its plain
-   version (and the attention against the unfused bf16 module, v1 against
-   gru_v2 and v3 against cuDNN's ``nn.GRU``, with each GRU's share of its
-   bound and its ratio to that other route), and v1 at one full wave of
-   blocks against half a wave (whether L2 bandwidth bounds it);
+   gru_v2 on the same input gates, and both at H=2048; then each timed
+   against its plain version (and the attention against the unfused bf16
+   module, v1 against gru_v2 and v3 against cuDNN's ``nn.GRU``, with each
+   GRU's share of its bound and its ratio to that other route), and v1 at
+   one full wave of 64-row tiles against half as many tiles, which the
+   plan gives two blocks each;
 13. the entry point: ``vqa_tpu_torch.main.main`` in this process, on a
    synthetic VQA-E root at full width, trains the MTL model (int8 feed,
    ``use_pallas``, bf16 over f32 masters, length buckets) for one epoch of
@@ -103,7 +110,9 @@ Phases, each of which raises (exit code 1) on failure:
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
-counts of each path, its time against its plain version and its bound) and
+counts of each path, its time against its plain version and its bound;
+gru_v2's and decode_att_fwd's also at B=512, as ``ms_b512`` and
+``bound_ms_b512``) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -237,7 +246,7 @@ PEAK_OPS_PER_MS = {"bf16": 989e9, "int8": 1979e9, "f32": 67e9}
 # kernel-name markers of the kinds a profile sums device time by, first
 # match wins
 PROFILE_KINDS = (
-    ("the port's kernels", ("decode_att_", "vocab_topk_", "gru_v2_",
+    ("the port's kernels", ("decode_att_", "vocab_topk_", "gru_seq_",
                             "dequant_matmul_", "pool_int8_", "int8_matmul_",
                             "gcn_chain_")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "Gemm")),
@@ -247,7 +256,7 @@ PROFILE_KINDS = (
 )
 
 KERNELS = {
-    "gru_v2": {"source": "vqa_tpu_torch/csrc/gru_v2.cu",
+    "gru_v2": {"source": "vqa_tpu_torch/csrc/gru.cu",
                "replaces": "vqa_tpu/ops/pallas/gru_v2.py:74"},
     "dequant_matmul": {"source": "vqa_tpu_torch/csrc/feed_gemm.cu",
                        "replaces": "vqa_tpu/ops/pallas/feed_gemm.py:55"},
@@ -472,11 +481,11 @@ def main() -> int:
         scale = ((torch.rand(rows, device=dev, generator=gen) * 2 + 2.5) / 127).to(bf16)
         return x_q, scale
 
-    def gru_inputs(batch: int):
-        xi = torch.randn(batch, Q_LEN, 3 * HIDDEN, device=dev, generator=gen).to(bf16)
-        bound = HIDDEN ** -0.5
-        wh = ((torch.rand(HIDDEN, 3 * HIDDEN, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
-        bh = ((torch.rand(3 * HIDDEN, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
+    def gru_inputs(batch: int, hidden: int = HIDDEN):
+        xi = torch.randn(batch, Q_LEN, 3 * hidden, device=dev, generator=gen).to(bf16)
+        bound = hidden ** -0.5
+        wh = ((torch.rand(hidden, 3 * hidden, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
+        bh = ((torch.rand(3 * hidden, device=dev, generator=gen) * 2 - 1) * bound).to(bf16)
         return xi, wh, bh
 
     def gemm_inputs(rows: int, k: int = V_DIM, n: int = HIDDEN):
@@ -660,15 +669,38 @@ def main() -> int:
     with torch.inference_mode():
         # the MTL training batch of 4096 and a ragged batch, in every regime
         # the decode scan feeds the kernels
-        for batch in (TRAIN_TIME_BATCH, 1003):
+        for batch in (TRAIN_BATCH, 1003, TRAIN_TIME_BATCH):
             for regime in ("f32", "f32-int8", "bf16", "bf16-int8"):
                 for thresh in (ATT_THRESH, None):
                     compare_att(batch, regime, thresh)
-        for batch in (1024, 1000):
-            xi, wh, bh = gru_inputs(batch)
+        # gru_v2 at the paths' B=512, a ragged B, the timed batches, a B
+        # that reaches each cluster size the plan can choose, and H=2048,
+        # whose state lives in device memory
+        caps = gru_v2._device_caps(dev, HIDDEN, False)
+        log(f"kernel gru_v2 H={HIDDEN}: state resident {caps[0]}, {caps[1]} SMs, "
+            f"clusters the card holds at once by size {caps[2]}")
+        # the most 64-row tiles whose clusters of c all fit at once: the plan
+        # takes c there (0: c does not schedule)
+        reach = {c: 64 * min(caps[2][c], caps[1] // c) for c in (16, 8, 4, 2)}
+        reach[1] = REGAT_TIME_BATCH
+        clusters_run = set()
+        for batch, hidden in sorted({(SERVE_BATCH, HIDDEN), (1000, HIDDEN),
+                                     (TRAIN_TIME_BATCH, HIDDEN),
+                                     (REGAT_TIME_BATCH, HIDDEN), (TIME_BATCH, HIDDEN),
+                                     (SERVE_BATCH, 2048),
+                                     *((b, HIDDEN) for b in reach.values() if b)}):
+            xi, wh, bh = gru_inputs(batch, hidden)
+            cluster, h16 = gru_v2.launch_plan(dev, batch, hidden, False)
+            clusters_run.add((cluster, hidden))
             compare("gru_v2", gru_v2.gru_last_state_v2(xi, wh, bh),
                     gru_v2.gru_last_state_v2_reference(xi, wh, bh),
-                    GRU_ATOL, 0.0, f"B={batch} T={Q_LEN} H={HIDDEN}")
+                    GRU_ATOL, 0.0, f"B={batch} T={Q_LEN} H={hidden} cluster={cluster} "
+                    f"state {'in shared memory' if h16 is None else 'in device memory'}")
+            del xi, wh, bh, h16
+        want_clusters = {c for c, b in reach.items() if b}
+        require(want_clusters <= {c for c, h in clusters_run if h == HIDDEN},
+                f"gru_v2 ran clusters {sorted(clusters_run)}, not every size of "
+                f"{sorted(want_clusters)}")
         # the path's shape and a ragged M, then the ragged edges of the
         # kernel's tiling (128 x 256 tiles, 64-deep K stages): an N not a
         # multiple of 256, an M below one tile, K of one stage and of a stage
@@ -834,14 +866,34 @@ def main() -> int:
 
     # -- 6. timing ----------------------------------------------------------
     # times, bounds, and the one PyTorch call timed beside a kernel
-    times, bounds, library = {}, {}, {}
+    # times, bounds, and the one PyTorch call timed beside a kernel; extra
+    # keys of a kernel's entry (its time at the batch the paths launch it at)
+    times, bounds, library, extra = {}, {}, {}, {}
     with torch.inference_mode():
-        xi, wh, bh = gru_inputs(TIME_BATCH)
-        times["gru_v2"] = time_pair(lambda: gru_v2.gru_last_state_v2(xi, wh, bh),
-                                    lambda: gru_v2.gru_last_state_v2_reference(xi, wh, bh), 10)
-        bounds["gru_v2"] = bound(nbytes(xi, wh, bh, gru_v2.gru_last_state_v2(xi, wh, bh)),
-                                 gru_ops(TIME_BATCH, Q_LEN, HIDDEN), "bf16")
-        del xi, wh, bh
+        # gru_v2 at the requests' B=512, the decode's, the ReGAT forward's and
+        # the timed B=16384, each with its plan's cluster size, beside v1 on
+        # the same xi
+        by_batch = {}
+        for batch in (SERVE_BATCH, DECODE_TIME_BATCH, REGAT_TIME_BATCH, TIME_BATCH):
+            xi, wh, bh = gru_inputs(batch)
+            cluster = gru_v2.launch_plan(dev, batch, HIDDEN, False)[0]
+            pair = time_pair(lambda: gru_v2.gru_last_state_v2(xi, wh, bh),
+                             lambda: gru_v2.gru_last_state_v2_reference(xi, wh, bh), 10)
+            v1_ms = time_ms(lambda: gru.gru_last_state(xi, wh, bh), 10)
+            b = bound(nbytes(xi, wh, bh, gru_v2.gru_last_state_v2(xi, wh, bh)),
+                      gru_ops(batch, Q_LEN, HIDDEN), "bf16")
+            by_batch[batch] = (pair, b, cluster)
+            log(f"time gru_v2 B={batch} T={Q_LEN} H={HIDDEN} cluster={cluster}: kernel "
+                f"{pair[0]:.4f} ms, plain {pair[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+                f"share of the bound {b[0] / pair[0]:.1%}, kernel / gru_last_state v1 on "
+                f"the same xi {pair[0] / v1_ms:.3f} (v1 {v1_ms:.4f} ms) [{card}]")
+            del xi, wh, bh
+        times["gru_v2"], bounds["gru_v2"] = by_batch[TIME_BATCH][:2]
+        extra["gru_v2"] = {
+            "ms_b512": by_batch[SERVE_BATCH][0][0],
+            "bound_ms_b512": by_batch[SERVE_BATCH][1][0],
+            "cluster_by_batch": {b: v[2] for b, v in by_batch.items()},
+            "ms_by_batch": {b: v[0][0] for b, v in by_batch.items()}}
         x_q, scale, w = gemm_inputs(TIME_BATCH * OBJS)
         times["dequant_matmul"] = time_pair(
             lambda: feed_gemm.dequant_matmul(x_q, scale, w),
@@ -1002,21 +1054,12 @@ def main() -> int:
                       (1003, OBJS, V_DIM, HIDDEN, HIDDEN)):
             compare_attention(lib_attention_inputs(*shape),
                               "B={} N={} Dv={} H={} Hq={}".format(*shape))
-        # H=2048: the state tile needs more shared memory than a block has,
-        # so the launch refuses it, counts nothing, and leaves no error
-        # behind for the launches below
-        wide = torch.zeros(2048, 3 * 2048, device=dev, dtype=bf16)
-        before = dict(_build.LAUNCHES)
-        try:
-            gru.gru_last_state(torch.zeros(64, 2, 3 * 2048, device=dev, dtype=bf16),
-                               wide, wide[0])
-            refused = ""
-        except RuntimeError as e:
-            refused = str(e)
-        log(f"kernel gru_last_state H=2048: refused at launch: {refused!r}")
-        require("CUDA error" in refused and _build.LAUNCHES == before,
-                "gru_last_state H=2048 was not refused at launch")
-        del wide
+        # H=2048: the 64-row state does not fit in shared memory beside the
+        # ring, so the kernel keeps it in device memory, and v1 and v3 run
+        # there too
+        for shape in ((64, 2, 12, 2048), (1003, 3, EMBED, 2048)):
+            compare_grus(*lib_gru_inputs(*shape), "B={} T={} H={}".format(
+                shape[0], shape[1], shape[3]))
         for batch, t_len, e_dim, hidden in ((16, 10, 12, 32), (16, 6, 12, 32),
                                             (1003, Q_LEN, EMBED, HIDDEN)):
             compare_grus(*lib_gru_inputs(batch, t_len, e_dim, hidden),
@@ -1083,16 +1126,20 @@ def main() -> int:
         # SM) against half a wave, which asks half the L2 bandwidth for the
         # recurrent weight; if L2 bandwidth bounded it, the half wave would
         # take about half as long
+        # and the cluster plan's answer to it: half the row tiles, each
+        # shared by two blocks, fill the wave again
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         wave = {}
-        for blocks in (sms, sms // 2):
-            rows = blocks * 64
+        for tiles in (sms, sms // 2):
+            rows = tiles * 64
             wave_args = (xi[:rows], wh, bh)
-            wave[blocks] = time_ms(lambda: gru.gru_last_state(*wave_args), 5)
-        log(f"time gru_last_state T={Q_LEN} H={HIDDEN}: one wave of {sms} blocks (B={sms * 64}) "
-            f"{wave[sms]:.4f} ms, half a wave ({sms // 2} blocks) {wave[sms // 2]:.4f} ms "
-            f"(ratio {wave[sms // 2] / wave[sms]:.3f}); B={LIB_TIME_BATCH} is "
-            f"{-(-LIB_TIME_BATCH // 64)} blocks, {-(-LIB_TIME_BATCH // 64) / sms:.2f} waves "
+            wave[tiles] = (time_ms(lambda: gru.gru_last_state(*wave_args), 5),
+                           gru_v2.launch_plan(dev, rows, HIDDEN, False)[0])
+        log(f"time gru_last_state T={Q_LEN} H={HIDDEN}: one wave of {sms} row tiles "
+            f"(B={sms * 64}, cluster {wave[sms][1]}) {wave[sms][0]:.4f} ms, half as many "
+            f"tiles ({sms // 2}, cluster {wave[sms // 2][1]}) {wave[sms // 2][0]:.4f} ms "
+            f"(ratio {wave[sms // 2][0] / wave[sms][0]:.3f}); B={LIB_TIME_BATCH} is "
+            f"{-(-LIB_TIME_BATCH // 64)} tiles, {-(-LIB_TIME_BATCH // 64) / sms:.2f} waves "
             f"[{card}]")
         del emb, gru_args, xi, out, cudnn_gru
     torch.cuda.empty_cache()
@@ -1186,9 +1233,23 @@ def main() -> int:
 
     # -- 9. train timing at the JAX package's MTL batch ---------------------
     with torch.inference_mode():
+        fkw = dict(objs=OBJS, att_scale=ATT_SCALE, thresh=ATT_THRESH)
+        # decode_att_fwd at the B=512 the training path launches it at
+        small = att_inputs(TRAIN_BATCH, "bf16-int8")
+        fwd_small = small + (ATT_SEED, ATT_STEP)
+        small_ms = time_pair(lambda: decode_att.decode_att_fwd(*fwd_small, **fkw),
+                             lambda: decode_att.decode_att_fwd_reference(*fwd_small, **fkw),
+                             20)
+        small_bound = bound(nbytes(*small, *decode_att.decode_att_fwd(*fwd_small, **fkw)),
+                            2.0 * TRAIN_BATCH * OBJS * (HIDDEN + V_DIM), "f32")
+        extra["decode_att_fwd"] = {"ms_b512": small_ms[0], "bound_ms_b512": small_bound[0]}
+        log(f"time decode_att_fwd B={TRAIN_BATCH} bf16 over the int8 payload, dropout "
+            f"0.2: kernel {small_ms[0]:.4f} ms, plain {small_ms[1]:.4f} ms, bound "
+            f"{small_bound[0]:.4f} ms ({small_bound[1]}), share of the bound "
+            f"{small_bound[0] / small_ms[0]:.1%} [{card}]")
+        del small, fwd_small
         vp, pool, w, qp, k = att_inputs(TRAIN_TIME_BATCH, "bf16-int8")
         fwd_args = (vp, pool, w, qp, k, ATT_SEED, ATT_STEP)
-        fkw = dict(objs=OBJS, att_scale=ATT_SCALE, thresh=ATT_THRESH)
         times["decode_att_fwd"] = time_pair(
             lambda: decode_att.decode_att_fwd(*fwd_args, **fkw),
             lambda: decode_att.decode_att_fwd_reference(*fwd_args, **fkw), 10)
@@ -1219,7 +1280,8 @@ def main() -> int:
     for name in TRAIN_KERNELS:
         log(f"time {name} B={TRAIN_TIME_BATCH} bf16 over the int8 payload, dropout "
             f"0.2: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
-            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), share of the bound "
+            f"{bounds[name][0] / times[name][0]:.1%} [{card}]")
 
     x_q, scale = int8_feed(TRAIN_TIME_BATCH * OBJS, V_DIM)
     big = {"q": torch.randint(0, NTOKEN, (TRAIN_TIME_BATCH, Q_LEN), device=dev, generator=gen),
@@ -1524,7 +1586,7 @@ def main() -> int:
                 # and vocab_topk_lse alone, cuDNN's GRU the function of
                 # gru_last_state_v3; no single PyTorch call computes any
                 # other of these
-                "library_ms": library.get(name)}
+                "library_ms": library.get(name), **extra.get(name, {})}
                for name in KERNELS]
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -232,3 +232,67 @@ def test_backward_formulas_match_autograd(rng, factored):
         np.testing.assert_allclose(f32(att.detach() * m), f32(auto[2]), **tol)
     # softmax cotangents sum to zero: the bias gradient outside the kernel
     np.testing.assert_allclose(f32(dl.sum(1)), np.zeros(B), atol=1e-5)
+
+
+def _no_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+
+
+def _meta_fwd(batch=4, objs=36, hidden=1024, dim=2048, offset=None):
+    """decode_att_fwd's operands on the meta device (bf16 over the int8
+    payload, factored weights); ``offset`` = (name, bytes) starts that
+    operand's data that many bytes into its storage."""
+    def make(name, shape, dtype):
+        n = math.prod(shape)
+        skip = offset[1] if offset and offset[0] == name else 0
+        per = torch.empty((), dtype=dtype).element_size()
+        extra = -(-skip // per)
+        t = torch.empty(n + extra, device="meta", dtype=dtype)
+        if skip:
+            t = t.view(torch.int8)[skip:skip + n * per].view(dtype)
+        return t[:n].view(*shape)
+    bf16 = torch.bfloat16
+    return (make("vp2", (batch, objs * hidden), bf16),
+            make("pool2", (batch, objs * dim), torch.int8),
+            make("w", (batch, objs), bf16), make("qp", (batch, hidden), bf16),
+            make("k", (hidden,), bf16))
+
+
+@pytest.mark.parametrize("case", ["vp2 align", "pool2 align", "qp align",
+                                  "H=8208", "D=8208"])
+def test_fwd_kernel_refuses_before_any_build(monkeypatch, tmp_path, case):
+    """What the streaming forward cannot take raises ValueError before the
+    library is built: an operand its bulk copies would read from off a
+    16-byte boundary, and H or D above 8192 (a lane's registers)."""
+    _no_nvcc(monkeypatch, tmp_path)
+    if case.endswith("align"):
+        ops, match = _meta_fwd(offset=(case.split()[0], 2)), "16-byte"
+    elif case.startswith("H"):
+        ops, match = _meta_fwd(hidden=8208), "at most 8192"
+    else:
+        ops, match = _meta_fwd(dim=8208), "at most 8192"
+    objs = ops[2].shape[1]
+    with pytest.raises(ValueError, match=match):
+        da.decode_att_fwd(*ops, SEED, STEP, objs=objs, att_scale=SCALE,
+                          thresh=205, emit_mask=True)
+
+
+@pytest.mark.parametrize("batch, objs, hidden, dim", [
+    (1, 36, 1024, 2048), (4, 64, 1024, 2048), (1003, 36, 1024, 2048),
+    (3, 5, 16, 16), (2, 36, 8192, 8192)])
+def test_shapes_the_fwd_kernel_takes_reach_the_build(monkeypatch, tmp_path,
+                                                     batch, objs, hidden,
+                                                     dim):
+    """One row, 64 boxes, a ragged B, the smallest widths and the widest
+    pass every check of decode_att_fwd and go to the build, which raises
+    here (no nvcc) and counts no launch."""
+    _no_nvcc(monkeypatch, tmp_path)
+    ops = _meta_fwd(batch, objs, hidden, dim)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError):
+        da.decode_att_fwd(*ops, SEED, STEP, objs=objs, att_scale=SCALE,
+                          thresh=205, emit_mask=True)
+    assert _build.LAUNCHES == before

@@ -304,3 +304,61 @@ def test_vocab_topk_plan_at_the_decode_shape():
     at R = 8 the splits fill the card instead (53 units of 3 tiles)."""
     assert vocab_topk._plan(12288, 20000, 132) == (20, 8, 132)
     assert vocab_topk._plan(8, 20000, 132) == (3, 53, 27)
+
+
+# the batches the paths launch gru_v2 at (requests of 512, the CLI's
+# decode), the timed ones, ragged ones and B=1; a 132-SM H100 and a 114-SM
+# card; 16-block clusters schedulable, or only up to 8
+@pytest.mark.parametrize("batch", [1, 512, 1003, 4096, 16384])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("max_cluster", [1, 8, 16])
+@pytest.mark.parametrize("hidden", [1024, 96])
+def test_gru_v2_plan_fills_one_wave(batch, sms, max_cluster, hidden):
+    """The cluster size is one the kernel is built for, at most
+    ``max_cluster``, divides H into 32-unit chunks (whole 64-unit K tiles
+    when c > 1), keeps c blocks for each of the ceil(B / 64) row tiles
+    within one wave (or is 1), and is the largest such size."""
+    c = gru_v2._plan(batch, hidden, sms, max_cluster)
+    tiles = -(-batch // 64)
+    assert c in gru_v2._CLUSTERS and c <= max_cluster
+    assert (hidden // c) % 32 == 0 and (c == 1 or (hidden // c) % 64 == 0)
+    assert c == 1 or tiles * c <= sms
+    bigger = 2 * c
+    assert not (bigger <= min(max_cluster, 16) and hidden % (64 * bigger) == 0
+                and tiles * bigger <= sms)
+
+
+def test_gru_v2_plan_at_the_path_batches():
+    """On a 132-SM H100 at H=1024: the requests' B=512 (8 row tiles) takes
+    16-block clusters where they schedule, else 8; B=4096 pairs of blocks;
+    B=8192 and 16384 single blocks; on a 114-SM card B=512 takes 8."""
+    plan = gru_v2._plan
+    assert plan(512, 1024, 132, 16) == 16
+    assert plan(512, 1024, 132, 8) == 8
+    assert plan(1000, 1024, 132, 16) == 8
+    assert plan(2048, 1024, 132, 16) == 4
+    assert plan(4096, 1024, 132, 16) == 2
+    assert plan(8192, 1024, 132, 16) == 1
+    assert plan(16384, 1024, 132, 16) == 1
+    assert plan(512, 1024, 114, 16) == 8
+    assert plan(512, 32, 132, 16) == 1
+    assert plan(512, 192, 132, 16) == 1   # 96 units a block: not whole K tiles
+
+
+@pytest.mark.parametrize("case", ["gru_v2 H=2048", "gru_v2 B=1",
+                                  "gru_v2 B=1000"])
+def test_shapes_the_gru_sequence_kernel_takes_reach_the_build(monkeypatch,
+                                                              tmp_path, case):
+    """An H whose state does not fit in shared memory, one row and a ragged
+    B pass every check of gru_v2 and go to the build (the plan asks the
+    card first), which raises here (no nvcc) and counts no launch."""
+    _no_nvcc(monkeypatch, tmp_path)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    batch, hidden = {"gru_v2 H=2048": (512, 2048), "gru_v2 B=1": (1, 1024),
+                     "gru_v2 B=1000": (1000, 1024)}[case]
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError):
+        gru_v2.gru_last_state_v2(torch.empty(batch, 10, 3 * hidden, **meta),
+                                 torch.empty(hidden, 3 * hidden, **meta),
+                                 torch.empty(3 * hidden, **meta))
+    assert _build.LAUNCHES == before

@@ -245,9 +245,10 @@ def test_library_wrappers_send_other_devices_to_the_kernel(monkeypatch,
                                                            tmp_path):
     """Only a CPU tensor takes the plain version: valid operands on any other
     device go to the kernel, which here cannot be built, so each wrapper
-    raises and counts no launch. A GRU too wide for shared memory passes the
-    wrapper's checks too: its launch refuses it (chip_smoke.py checks that
-    on the card)."""
+    raises and counts no launch. A GRU whose state is too wide for shared
+    memory passes the wrapper's checks too: the kernel keeps that state in
+    device memory (chip_smoke.py holds it against the plain version on the
+    card)."""
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -273,18 +274,37 @@ def test_library_wrappers_send_other_devices_to_the_kernel(monkeypatch,
     assert _build.LAUNCHES == before
 
 
+# what gru_query reports on a 132-SM H100 at 227 KB a block: the state stays
+# resident up to H=1024; clusters of each size the card holds at once
+H100_CLUSTERS = {1: 132, 2: 66, 4: 32, 8: 16, 16: 7}
+
+
 def record_launches(monkeypatch):
-    """Replace ``_build.launch`` with a recorder of (kernel, entry, args)."""
+    """Replace ``_build.launch`` with a recorder of (kernel, entry, args),
+    and the sequence kernel's query of the card with an H100's answer."""
     calls = []
     monkeypatch.setattr(_build, "launch",
                         lambda kernel, entry, device, *args:
                         calls.append((kernel, entry, args)))
+    monkeypatch.setattr(gru_v2, "_device_caps", lambda device, hidden, v3: (
+        hidden <= 1024, 132,
+        {c: n if gru_v2.cluster_fits(hidden, c) else 0
+         for c, n in H100_CLUSTERS.items()}))
     return calls
 
 
+def expected_cluster(batch, hidden):
+    """The plan on that H100: 16-block clusters do not all fit at once for
+    8 row tiles (7 of them), so B=512 takes 8."""
+    tiles = -(-batch // 64)
+    max_cluster = max(c for c, n in H100_CLUSTERS.items()
+                      if c == 1 or (n >= tiles and gru_v2.cluster_fits(hidden, c)))
+    return gru_v2._plan(batch, hidden, 132, max_cluster)
+
+
 # (B, T, H): the JAX test shapes, a ragged B, full width, and an H whose
-# state does not fit in shared memory (the wrapper passes it: the launch
-# refuses it on the card, before the kernel runs)
+# state does not fit in shared memory (it lives in a [2, B, H] bf16 buffer
+# that the wrapper allocates)
 @pytest.mark.parametrize("batch, t_len, hidden", [(16, 10, 32), (16, 6, 32),
                                                   (1003, 10, 1024),
                                                   (16384, 10, 1024),
@@ -292,7 +312,9 @@ def record_launches(monkeypatch):
 def test_gru_v1_wrapper_hands_the_kernel_its_operands(monkeypatch, batch,
                                                       t_len, hidden):
     """v1 passes xi as it is, the recurrent weight gate-major ([3H, H],
-    K-major: the wgmma B operand the TMA loads), bh, and B, T, H."""
+    K-major: the wgmma B operand the TMA loads), bh, the device-memory state
+    where the state is not resident (else None), B, T, H and the plan's
+    cluster size."""
     calls = record_launches(monkeypatch)
     xi = torch.empty(batch, t_len, 3 * hidden, **META)
     out = gru.gru_last_state(xi, torch.empty(hidden, 3 * hidden, **META),
@@ -303,7 +325,13 @@ def test_gru_v1_wrapper_hands_the_kernel_its_operands(monkeypatch, batch,
     assert args[0] is xi
     assert args[1].shape == (3 * hidden, hidden) and args[1].is_contiguous()
     assert args[2].shape == (3 * hidden,) and args[3] is out
-    assert args[4:] == (batch, t_len, hidden)
+    if hidden <= 1024:
+        assert args[4] is None
+    else:
+        assert args[4].shape == (2, batch, hidden)
+        assert args[4].dtype == torch.bfloat16
+    assert args[5:] == (batch, t_len, hidden,
+                        expected_cluster(batch, hidden))
 
 
 # (B, T, E, H): the JAX test shapes (E=12 pads to 16), a ragged B at the
@@ -315,8 +343,8 @@ def test_gru_v3_wrapper_hands_the_kernel_its_operands(monkeypatch, batch,
                                                       t_len, e_dim, hidden):
     """v3 pads emb with zeros along E to E8, a multiple of 8 (TMA's 16-byte
     row pitch), only where E is not one, and hands the kernel the input
-    weight gate-major and zero-padded alike ([3H, E8]), then B, T, H, E,
-    E8."""
+    weight gate-major and zero-padded alike ([3H, E8]), then (no
+    device-memory state at these H) B, T, H, E, E8 and the cluster size."""
     calls = record_launches(monkeypatch)
     gates, e8 = 3 * hidden, -(-e_dim // 8) * 8
     emb = torch.empty(batch, t_len, e_dim, **META)
@@ -332,7 +360,9 @@ def test_gru_v3_wrapper_hands_the_kernel_its_operands(monkeypatch, batch,
     assert (emb8 is emb) == (e8 == e_dim)
     assert wi_t.shape == (gates, e8) and wi_t.is_contiguous()
     assert args[3].shape == (gates, hidden) and args[5] is out
-    assert args[6:] == (batch, t_len, hidden, e_dim, e8)
+    assert args[6] is None
+    assert args[7:] == (batch, t_len, hidden, e_dim, e8,
+                        expected_cluster(batch, hidden))
 
 
 @pytest.mark.parametrize("hidden", [48, 100])

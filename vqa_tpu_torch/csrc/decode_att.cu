@@ -26,20 +26,45 @@
 // the side: one call per 16 mask bytes, about 9.4 M a step for fwd and bwd
 // and T times that for dvp, where they, and not memory, may bound it.
 //
-// Design: fwd and bwd give one block of 256 threads to a batch row. The
-// [objs] logits are one warp reduction per box (the box's 1024 lanes split
-// into 16-lane groups, one Philox call and 16-element vector loads each),
-// the softmax over <= 64 boxes is computed by one thread per box from shared
-// memory, and the pooling over D is one pass with 16 f32 sums per thread. bwd
-// splits the boxes over 4 thread groups for d_qp_pre and adds their partial
-// rows in shared memory. dvp gives each thread one (row, box, 16-lane group)
+// Design. fwd is a streaming pipeline, so that a row's payload is in
+// flight while its logits and softmax run: a persistent grid of two blocks
+// an SM, or three where each gets at least two rows (16 or 24 consumer
+// warps to share the Philox draws and the products), takes rows
+// b = blockIdx.x + grid i; in each block one producer thread issues 1-D
+// bulk copies (cp.async.bulk, no tensor map: rows of qp, vp2 and pool2 are
+// contiguous) into an mbarrier ring of 16 KB stages (192 KB an SM, shared
+// by its blocks; larger stages where one box is larger), in the order qp
+// row b,
+// vp boxes of row b (8 a stage in bf16 at H=1024), payload boxes of row b
+// (8 a stage in int8 at D=2048), then row b + 1, so the ring's depth covers
+// the softmax between the two. Eight consumer warps take each stage as it
+// lands: the qp stage becomes each lane's qp * k * scale for its 16-lane
+// groups, in registers (the same groups of every box); a vp stage gives a
+// box to a warp (or to `wpb` warps, each a share of the groups), one
+// Philox draw a group, its bytes compared with thresh four at a time
+// (__vcmpltu4) into masks that zero the dropped lanes' raw bits before one
+// 16-lane product, the first draw computed before the stage's bytes are
+// waited for; warp 0 runs the softmax over the
+// <= 64 boxes with shuffles; in a payload stage each of the 256 consumer
+// threads owns 8 lanes of D (at D=2048 every thread is busy) and sums
+// att * w * pool over the boxes in registers, in box order. Each stage goes
+// back to the producer as soon as the warps have read it. bwd gives one
+// block of 256 threads to a batch row: m is one warp reduction per box
+// over D, the softmax cotangent one thread per box, and d_qp_pre splits
+// the boxes over 4 thread groups whose partial rows are added in shared
+// memory. fwd, measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md): 0.284 ms at B=4096 (66% of its 0.188 ms bound; the
+// one-block-a-row design it replaced took 0.404) and 0.051 ms at B=512.
+// dvp gives each thread one (row, box, 16-lane group)
 // and loops over t, its 16 sums in registers: d_vp is written once and the
 // [T, B, objs, H] product never exists.
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -152,16 +177,61 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The 16 mask bytes of keep bits, as the uint8 layout of the emitted mask.
-__device__ __forceinline__ uint4 mask_bytes(uint32_t bits) {
-  uint32_t w[4];
+// The byte masks of the (b, n, g) draw: byte j of word i is 0xFF where
+// byte j of output word i is below thresh (lane 16 g + 4 i + j kept), else
+// 0; all 0xFF when thresh == 0. The same contract as keep_bits.
+__device__ __forceinline__ uint4 keep_words(uint32_t seed, uint32_t t, uint32_t b,
+                                            uint32_t n, uint32_t g, uint32_t thresh) {
+  if (thresh == 0) return make_uint4(~0u, ~0u, ~0u, ~0u);
+  const uint4 r = philox4x32_10(b, n, g, seed, t);
+  const uint32_t th = thresh * 0x01010101u;
+  return make_uint4(__vcmpltu4(r.x, th), __vcmpltu4(r.y, th), __vcmpltu4(r.z, th),
+                    __vcmpltu4(r.w, th));
+}
+
+__device__ __forceinline__ uint32_t word_of(uint4 m, int i) {
+  return i == 0 ? m.x : i == 1 ? m.y : i == 2 ? m.z : m.w;
+}
+
+// sum_l keep_l x[l] qk[l] over the 16 lanes at p (16-byte aligned), the
+// dropped lanes zeroed in their raw bits by the byte masks m
+__device__ __forceinline__ float masked_dot16(const __nv_bfloat16* p, uint4 m,
+                                              const float qk[kLanes]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  float s = 0.f;
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    const uint4 r = q[v];
+    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      // bf16 lanes 8 v + 2 w (+1): mask bytes 2 w, 2 w + 1 of word v * 2 + w / 2
+      const uint32_t mw = word_of(m, 2 * v + w / 2);
+      const uint32_t keep = __byte_perm(mw, 0, (w & 1) ? 0x3322 : 0x1100);
+      const uint32_t x = u[w] & keep;
+      const int l = 8 * v + 2 * w;
+      s += __uint_as_float(x << 16) * qk[l];
+      s += __uint_as_float(x & 0xFFFF0000u) * qk[l + 1];
+    }
+  }
+  return s;
+}
+__device__ __forceinline__ float masked_dot16(const float* p, uint4 m,
+                                              const float qk[kLanes]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  float s = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    w[i] = 0;
+    const uint4 r = q[i];
+    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+    const uint32_t mw = word_of(m, i);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) w[i] |= ((bits >> (4 * i + j)) & 1u) << (8 * j);
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t keep = __byte_perm(mw, 0, 0x1111 * j);
+      s += __uint_as_float(u[j] & keep) * qk[4 * i + j];
+    }
   }
-  return make_uint4(w[0], w[1], w[2], w[3]);
+  return s;
 }
 
 struct FwdArgs {
@@ -178,66 +248,284 @@ struct FwdArgs {
   float att_scale;
 };
 
+// The forward's streaming ring: one producer warp (one elected thread) and
+// 8 consumer warps; stages of `stage_bytes` (at least 16 KB, a multiple of
+// 128) hold, for each batch row in turn, its qp row, then its vp boxes
+// `nb_v` at a time, then its payload boxes `nb_p` at a time. In the logits,
+// `wpb` warps share a box (each lane then owns at most kLaneGroups 16-lane
+// groups of it, the same ones for every box).
+constexpr int kFwdConsumers = 256;
+constexpr int kFwdWarps = kFwdConsumers / 32;
+constexpr int kFwdThreads = kFwdConsumers + 32;
+// two blocks an SM, or three where each takes at least two rows; the
+// SM's 192 KB of ring shared between them
+constexpr int kFwdMaxBlocksPerSm = 3;
+constexpr int kSmRingBytes = 192 * 1024;
+constexpr int kMinStageBytes = 16 * 1024;
+constexpr int kMaxFwdStages = 8;
+constexpr int kLaneGroups = 2;
+constexpr int kPoolGroups = 4;         // 8-lane groups of D a thread owns
+constexpr int kMaxFwdWidth = 8192;     // H and D: kLaneGroups, kPoolGroups
+
+struct FwdPlan {
+  int stage_bytes, stages, nb_v, nb_p, wpb;
+};
+
+int pow2_floor(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+
+int fwd_blocks_per_sm(int B, int sms) {
+  return B >= 2 * kFwdMaxBlocksPerSm * sms ? kFwdMaxBlocksPerSm : 2;
+}
+
+FwdPlan fwd_plan(int t_size, int p_size, int objs, int H, int D, int blocks_per_sm) {
+  const int box_v = H * t_size, box_p = D * p_size;
+  FwdPlan pl;
+  int sb = box_v > box_p ? box_v : box_p;
+  if (sb < kMinStageBytes) sb = kMinStageBytes;
+  pl.stage_bytes = (sb + 127) / 128 * 128;
+  pl.stages = kSmRingBytes / blocks_per_sm / pl.stage_bytes;
+  if (pl.stages > kMaxFwdStages) pl.stages = kMaxFwdStages;
+  if (pl.stages < 2) pl.stages = 2;
+  pl.nb_v = pl.stage_bytes / box_v;
+  pl.nb_p = pl.stage_bytes / box_p;
+  if (pl.nb_v > objs) pl.nb_v = objs;
+  if (pl.nb_p > objs) pl.nb_p = objs;
+  const int G = H / kLanes;
+  int wpb = 1;   // enough warps a box that a lane holds <= kLaneGroups groups
+  while (wpb < kFwdWarps && wpb * 32 * kLaneGroups < G) wpb *= 2;
+  const int fill = kFwdWarps / pow2_floor(pl.nb_v < kFwdWarps ? pl.nb_v : kFwdWarps);
+  pl.wpb = wpb > fill ? wpb : fill;   // and every warp busy when few boxes fit
+  return pl;
+}
+
+size_t fwd_smem(const FwdPlan& pl, int H) {
+  return size_t(pl.stages) * pl.stage_bytes + size_t(H) * sizeof(float) +
+         size_t(kMaxObjs) * (kFwdWarps + 1) * sizeof(float) +
+         2 * size_t(pl.stages) * sizeof(uint64_t);
+}
+
+// 8 consecutive payload elements (8, 16 or 32 bytes, aligned) as f32
+__device__ __forceinline__ void load8(const int8_t* p, float x[8]) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const int8_t* q = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(q[i]);
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float x[8]) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(u[i] << 16);
+    x[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float x[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void store8(float* p, const float x[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float x[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16x2(x[0], x[1]), pack_bf16x2(x[2], x[3]),
+                                            pack_bf16x2(x[4], x[5]), pack_bf16x2(x[6], x[7]));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, o));
+  return x;
+}
+
 template <typename T, typename P, bool kFactored>
-__global__ void __launch_bounds__(kThreads) decode_att_fwd_kernel(FwdArgs a) {
-  extern __shared__ float qk[];     // [H]: qp * k * scale of this row
-  __shared__ float logits[kMaxObjs];
-  __shared__ float aw[kMaxObjs];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+__global__ void __launch_bounds__(kFwdThreads, kFwdMaxBlocksPerSm)
+decode_att_fwd_kernel(const FwdArgs a, const FwdPlan pl, int B) {
+  extern __shared__ __align__(128) unsigned char fsmem[];
+  const int S = pl.stages, SB = pl.stage_bytes;
   const int objs = a.objs, H = a.H, D = a.D, G = H / kLanes;
-  const T* qp = static_cast<const T*>(a.qp) + static_cast<size_t>(b) * H;
+  unsigned char* ring = fsmem;
+  float* ks = reinterpret_cast<float*>(ring + size_t(S) * SB);   // [H]: k * scale
+  float* lpart = ks + H;                 // [kMaxObjs][kFwdWarps]: logit partials
+  float* aw = lpart + kMaxObjs * kFwdWarps;   // [kMaxObjs]: the pooling weights
+  uint64_t* full = reinterpret_cast<uint64_t*>(aw + kMaxObjs);
+  uint64_t* empty = full + S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);           // the producer's arrival, plus the bytes
+      mbar_init(&empty[s], kFwdWarps);  // one arrival from each consumer warp
+    }
+    mbar_init_fence();
+  }
   const T* k = static_cast<const T*>(a.k);
   const float scale = a.thresh ? a.att_scale : 1.f;
-  for (int h = tid; h < H; h += kThreads) qk[h] = to_f(qp[h]) * to_f(k[h]) * scale;
+  for (int h = tid; h < H; h += kFwdThreads) ks[h] = to_f(k[h]) * scale;
   __syncthreads();
 
-  const T* vrow = static_cast<const T*>(a.vp) + static_cast<size_t>(b) * objs * H;
-  for (int n = warp; n < objs; n += kWarps) {
-    float part = 0.f;
-    for (int g = lane; g < G; g += 32) {
-      float x[kLanes];
-      load16(vrow + static_cast<size_t>(n) * H + g * kLanes, x);
-      const uint32_t bits = keep_bits(a.seed, a.t, b, n, g, a.thresh);
-      if (a.mask)
-        *reinterpret_cast<uint4*>(a.mask + (static_cast<size_t>(b) * objs + n) * H +
-                                  g * kLanes) = mask_bytes(bits);
-#pragma unroll
-      for (int i = 0; i < kLanes; ++i)
-        if ((bits >> i) & 1u) part += x[i] * qk[g * kLanes + i];
+  const size_t box_v = size_t(H) * sizeof(T), box_p = size_t(D) * sizeof(P);
+  if (warp == kFwdWarps) {
+    // ---- producer: row by row, its qp, vp and payload, in ring order ----
+    if (lane == 0) {
+      int it = 0;
+      auto issue = [&](const void* src, size_t bytes) {
+        const int s = it % S;
+        mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], static_cast<uint32_t>(bytes));
+        bulk_load(ring + size_t(s) * SB, src, static_cast<uint32_t>(bytes), &full[s]);
+        ++it;
+      };
+      const unsigned char* qp = static_cast<const unsigned char*>(a.qp);
+      const unsigned char* vp = static_cast<const unsigned char*>(a.vp);
+      const unsigned char* pool = static_cast<const unsigned char*>(a.pool);
+      for (int b = blockIdx.x; b < B; b += gridDim.x) {
+        issue(qp + size_t(b) * box_v, box_v);
+        for (int n0 = 0; n0 < objs; n0 += pl.nb_v)
+          issue(vp + (size_t(b) * objs + n0) * box_v,
+                size_t(min(pl.nb_v, objs - n0)) * box_v);
+        for (int n0 = 0; n0 < objs; n0 += pl.nb_p)
+          issue(pool + (size_t(b) * objs + n0) * box_p,
+                size_t(min(pl.nb_p, objs - n0)) * box_p);
+      }
     }
-    part = warp_sum(part);
-    if (lane == 0) logits[n] = part;
+    return;
   }
-  __syncthreads();
 
-  if (tid < objs) {
-    float mx = logits[0];
-    for (int j = 1; j < objs; ++j) mx = fmaxf(mx, logits[j]);
-    float sum = 0.f;
-    for (int j = 0; j < objs; ++j) sum += expf(logits[j] - mx);
-    const float p = expf(logits[tid] - mx) / sum;
-    static_cast<T*>(a.att)[static_cast<size_t>(b) * objs + tid] = from_f<T>(p);
-    aw[tid] = kFactored
-                  ? p * to_f(static_cast<const T*>(a.w)[static_cast<size_t>(b) * objs + tid])
-                  : p;
-  }
-  __syncthreads();
-
-  const P* prow = static_cast<const P*>(a.pool) + static_cast<size_t>(b) * objs * D;
-  T* out = static_cast<T*>(a.att_v) + static_cast<size_t>(b) * D;
-  for (int d0 = tid * kLanes; d0 < D; d0 += kThreads * kLanes) {
-    float acc[kLanes];
-#pragma unroll
-    for (int i = 0; i < kLanes; ++i) acc[i] = 0.f;
-    for (int n = 0; n < objs; ++n) {
-      float x[kLanes];
-      load16(prow + static_cast<size_t>(n) * D + d0, x);
-      const float s = aw[n];
-#pragma unroll
-      for (int i = 0; i < kLanes; ++i) acc[i] += s * x[i];
+  // ---- consumers ----
+  const int wpb = pl.wpb, sub = warp % wpb, i0 = warp / wpb, istep = kFwdWarps / wpb;
+  int it = 0;
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const size_t row = size_t(b) * objs;
+    // the factored weights of the softmax's boxes (warp 0), early
+    float w0 = 1.f, w1 = 1.f;
+    if (kFactored && warp == 0) {
+      const T* w = static_cast<const T*>(a.w) + row;
+      if (lane < objs) w0 = to_f(w[lane]);
+      if (lane + 32 < objs) w1 = to_f(w[lane + 32]);
     }
-    store16(out + d0, acc);
+    // qp * k * scale of this lane's groups, in registers for every box
+    float qk[kLaneGroups][kLanes];
+    {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const T* q = reinterpret_cast<const T*>(ring + size_t(s) * SB);
+#pragma unroll
+      for (int j = 0; j < kLaneGroups; ++j) {
+        const int g = (j * wpb + sub) * 32 + lane;
+#pragma unroll
+        for (int l = 0; l < kLanes; ++l)
+          qk[j][l] = g < G ? to_f(q[g * kLanes + l]) * ks[g * kLanes + l] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      ++it;
+    }
+    // the logits: the draw of a lane's first group before its bytes
+    for (int n0 = 0; n0 < objs; n0 += pl.nb_v, ++it) {
+      const int nbs = min(pl.nb_v, objs - n0);
+      const int s = it % S;
+      const int n_first = n0 + i0;
+      const int g_first = sub * 32 + lane;
+      const uint4 m0 = i0 < nbs && g_first < G
+                           ? keep_words(a.seed, a.t, b, n_first, g_first, a.thresh)
+                           : make_uint4(0, 0, 0, 0);
+      mbar_wait(&full[s], (it / S) & 1);
+      const T* st = reinterpret_cast<const T*>(ring + size_t(s) * SB);
+      for (int i = i0; i < nbs; i += istep) {
+        const int n = n0 + i;
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < kLaneGroups; ++j) {
+          const int g = (j * wpb + sub) * 32 + lane;
+          if (g < G) {
+            const uint4 m = (i == i0 && j == 0)
+                                ? m0
+                                : keep_words(a.seed, a.t, b, n, g, a.thresh);
+            if (a.mask)
+              *reinterpret_cast<uint4*>(a.mask + (row + n) * H + g * kLanes) =
+                  make_uint4(m.x & 0x01010101u, m.y & 0x01010101u, m.z & 0x01010101u,
+                             m.w & 0x01010101u);
+            part += masked_dot16(st + size_t(i) * H + g * kLanes, m, qk[j]);
+          }
+        }
+        part = warp_sum(part);
+        if (lane == 0) lpart[n * kFwdWarps + sub] = part;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    named_barrier(1, kFwdConsumers);
+
+    // the softmax over <= 64 boxes, two a lane of warp 0
+    if (warp == 0) {
+      float l0 = -INFINITY, l1 = -INFINITY;
+      if (lane < objs) {
+        l0 = 0.f;
+        for (int j = 0; j < wpb; ++j) l0 += lpart[lane * kFwdWarps + j];
+      }
+      if (lane + 32 < objs) {
+        l1 = 0.f;
+        for (int j = 0; j < wpb; ++j) l1 += lpart[(lane + 32) * kFwdWarps + j];
+      }
+      const float mx = warp_max(fmaxf(l0, l1));
+      const float e0 = lane < objs ? expf(l0 - mx) : 0.f;
+      const float e1 = lane + 32 < objs ? expf(l1 - mx) : 0.f;
+      const float sum = warp_sum(e0 + e1);
+      T* att = static_cast<T*>(a.att) + row;
+      if (lane < objs) {
+        const float p = e0 / sum;
+        att[lane] = from_f<T>(p);
+        aw[lane] = kFactored ? p * w0 : p;
+      }
+      if (lane + 32 < objs) {
+        const float p = e1 / sum;
+        att[lane + 32] = from_f<T>(p);
+        aw[lane + 32] = kFactored ? p * w1 : p;
+      }
+    }
+    named_barrier(1, kFwdConsumers);
+
+    // the pooling: thread tid owns 8-lane groups tid + 256 q of D, every box
+    float acc[kPoolGroups][8];
+#pragma unroll
+    for (int q = 0; q < kPoolGroups; ++q)
+#pragma unroll
+      for (int l = 0; l < 8; ++l) acc[q][l] = 0.f;
+    for (int n0 = 0; n0 < objs; n0 += pl.nb_p, ++it) {
+      const int nbs = min(pl.nb_p, objs - n0);
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const P* st = reinterpret_cast<const P*>(ring + size_t(s) * SB);
+      for (int i = 0; i < nbs; ++i) {
+        const float sc = aw[n0 + i];
+#pragma unroll
+        for (int q = 0; q < kPoolGroups; ++q) {
+          const int d = (tid + q * kFwdConsumers) * 8;
+          if (d < D) {
+            float x[8];
+            load8(st + size_t(i) * D + d, x);
+#pragma unroll
+            for (int l = 0; l < 8; ++l) acc[q][l] += sc * x[l];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    T* out = static_cast<T*>(a.att_v) + size_t(b) * D;
+#pragma unroll
+    for (int q = 0; q < kPoolGroups; ++q) {
+      const int d = (tid + q * kFwdConsumers) * 8;
+      if (d < D) store8(out + d, acc[q]);
+    }
   }
 }
 
@@ -374,10 +662,19 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 template <typename T, typename P, bool F>
 cudaError_t fwd_launch(const FwdArgs& a, int B, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(a.H) * sizeof(float);
-  cudaError_t e = set_smem(decode_att_fwd_kernel<T, P, F>, smem);
+  if (a.H > kMaxFwdWidth || a.D > kMaxFwdWidth) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  decode_att_fwd_kernel<T, P, F><<<B, kThreads, smem, s>>>(a);
+  const int bps = fwd_blocks_per_sm(B, sms);
+  const FwdPlan pl = fwd_plan(sizeof(T), sizeof(P), a.objs, a.H, a.D, bps);
+  const size_t smem = fwd_smem(pl, a.H);
+  e = set_smem(decode_att_fwd_kernel<T, P, F>, smem);
+  if (e != cudaSuccess) return e;
+  // persistent: bps blocks an SM, each taking rows blockIdx.x + grid i
+  const int grid = B < bps * sms ? B : bps * sms;
+  decode_att_fwd_kernel<T, P, F><<<grid, kFwdThreads, smem, s>>>(a, pl, B);
   return cudaGetLastError();
 }
 

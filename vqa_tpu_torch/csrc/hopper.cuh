@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma
 // with TMA loads into mbarrier rings (int8_matmul.cu, gru.cu, feed_gemm.cu,
-// vocab_topk.cu).
+// vocab_topk.cu), and by decode_att.cu's bulk-copy ring.
 //
 // - TMA tensor maps, encoded on the host by cuTensorMapEncodeTiled, which is
 //   looked up at run time by cudaGetDriverEntryPoint(ByVersion), so the
@@ -10,7 +10,10 @@
 //   stage, which threads read), and zero-fills what lies past the tensor's
 //   edge.
 // - mbarriers: init, arrive, arrive with an expected transaction count, and
-//   the wait on a phase parity.
+//   the wait on a phase parity; 1-D bulk copies (no tensor map).
+// - clusters: rank and id, the cluster-wide barrier, arrivals on a peer
+//   block's mbarrier and bulk copies into its shared memory (mapa), and the
+//   wait that acquires what peers released.
 // - wgmma: the shared-memory matrix descriptor of a K-major tile in that
 //   128-byte swizzle, fence / commit / wait, and the instructions at the
 //   widths the kernels use (bf16 -> f32 m64n{32,64,96,128,256}k16, s8 -> s32
@@ -167,6 +170,92 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, completing `bar`'s
+// transactions; no tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// orders this thread's generic-proxy writes to any state space (shared
+// memory of this block or of a peer, device memory) before later
+// async-proxy accesses (wgmma operands, TMA loads), and the reverse
+__device__ __forceinline__ void fence_proxy_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// ---- device: thread block clusters --------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster, with release / acquire
+// semantics at cluster scope (all threads of the block must take part)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one arrival, released at cluster scope, on the barrier at `bar`'s offset
+// in the shared memory of cluster block `rank` (which may be this one)
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// waits until the phase of parity `parity` has completed, acquiring at
+// cluster scope what the arrivals released (writes of peer blocks)
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAITC:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAITC;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// a bulk copy of `bytes` (a multiple of 16) from this block's shared memory
+// at `local` to the same offset in cluster block `rank`, counting its bytes
+// on the barrier at `bar`'s offset there (distributed shared memory)
+__device__ __forceinline__ void bulk_copy_to_peer(const void* local, uint32_t bytes,
+                                                  uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 rd, rb;\n"
+      "mapa.shared::cluster.u32 rd, %0, %2;\n"
+      "mapa.shared::cluster.u32 rb, %1, %2;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [rd], [%0], %3, [rb];\n}\n" ::"r"(smem_addr(local)),
+      "r"(smem_addr(bar)), "r"(rank), "r"(bytes)
+      : "memory");
 }
 
 // ---- device: wgmma -----------------------------------------------------------

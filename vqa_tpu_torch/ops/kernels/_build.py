@@ -40,8 +40,6 @@ LAUNCHES = {"gru_v2": 0, "dequant_matmul": 0, "pool_int8": 0,
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _ENTRY_POINTS = {
-    # xi, w_gk, bh, h32 [2, B, H], h16 [2, B, H], B, T, H, stream
-    "gru_v2_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x_q, scale, w_nk, out, M, K, N, stream
     "dequant_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _P),
     # w, x_q, out, B, N, D, stream
@@ -67,10 +65,13 @@ _ENTRY_POINTS = {
     # v, q, wv_t, wq_t, bv, bq, wl, bl, pooled, att, B, N, Dv, H, Hq,
     # vec_bf16, stream
     "fused_attention_forward": (_P,) * 10 + (_I,) * 6 + (_P,),
-    # xi, w, bh, out, B, T, H, stream
-    "gru_last_state_forward": (_P,) * 4 + (_I,) * 3 + (_P,),
-    # emb [B, T, E8], wi [3H, E8], bi, w, bh, out, B, T, H, E, E8, stream
-    "gru_last_state_v3_forward": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # xi, w, bh, out, h16 [2, B, H] or null, B, T, H, cluster, stream
+    "gru_last_state_forward": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # emb [B, T, E8], wi [3H, E8], bi, w, bh, out, h16, B, T, H, E, E8,
+    # cluster, stream
+    "gru_last_state_v3_forward": (_P,) * 7 + (_I,) * 6 + (_P,),
+    # H, v3, &resident, &capacity[5], &sms (no stream, launches nothing)
+    "gru_query": (_I, _I, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -163,6 +164,18 @@ def check_operand(kernel: str, name: str, t: torch.Tensor,
     if t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{kernel}: the kernel has no backward; call it "
                            "under torch.no_grad() or torch.inference_mode()")
+
+
+def query(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry``, which launches nothing, on ``device``
+    with ``args`` (results come back through the pointers among them), and
+    raise on a CUDA error. Counts nothing."""
+    lib = library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args)
+    if rc != 0:
+        msg = lib.vqa_kernels_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {rc} in {entry}: {msg}")
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:

@@ -29,6 +29,13 @@ same mask whatever the tiling, and a ragged batch needs no tile rule. This
 is another Bernoulli stream than the TPU kernels' hardware PRNG, with the
 same keep law.
 
+The forward kernel streams each row's qp, vp and payload by 1-D bulk copies
+through an mbarrier ring on a persistent grid, so a row's payload is in
+flight while its logits and softmax run (0.284 ms at B=4096, 0.051 ms at
+B=512: ``chip_smoke.py``, NVIDIA H100 80GB HBM3, 700 W; PERF.md). Its
+operands must start on 16-byte boundaries, and H and D stay at most
+``MAX_FWD_WIDTH``.
+
 A wrapper given CPU tensors runs the plain version (``*_reference``); given
 CUDA tensors it launches the kernel or raises.
 """
@@ -45,6 +52,9 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57          # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85          # Weyl key increments
 _MASK32 = 0xFFFFFFFF
 LANES = 16                                  # mask bytes of one Philox call
+# the forward kernel's widest H and D (a lane's registers for its qp * k
+# groups and its pooling sums)
+MAX_FWD_WIDTH = 8192
 _ACT = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -242,6 +252,13 @@ def decode_att_fwd(vp2, pool2, w, qp, k, seed: int, t: int, *, objs: int,
     if w is not None:
         ops["w"] = (w, qp.dtype, dev)
     _check("decode_att_fwd", **ops)
+    if H > MAX_FWD_WIDTH or D > MAX_FWD_WIDTH:
+        raise ValueError(f"decode_att_fwd: H={H} and D={D} must be at most "
+                         f"{MAX_FWD_WIDTH}")
+    for name, x in (("vp2", vp2), ("pool2", pool2), ("qp", qp)):
+        if x.data_ptr() % 16:   # the bulk copies read from 16-byte boundaries
+            raise ValueError(f"decode_att_fwd: {name} must start on a "
+                             "16-byte boundary")
     kind = _pool_kind(pool2, qp.dtype)
     att = torch.empty((B, objs), dtype=qp.dtype, device=dev)
     att_v = torch.empty((B, D), dtype=qp.dtype, device=dev)

@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from vqa_tpu_torch.ops.kernels import _build
-from vqa_tpu_torch.ops.kernels.gru import check_recurrent
-from vqa_tpu_torch.ops.kernels.gru_v2 import gru_last_state_v2_reference
+from vqa_tpu_torch.ops.kernels.gru_v2 import (
+    check_recurrent, gru_last_state_v2_reference, launch_plan)
 
 # TMA's 16-byte row pitch in bf16: emb and the input weight are zero-padded
 # along E to a multiple of it
@@ -45,9 +45,9 @@ def gru_last_state_v3(emb: torch.Tensor, wi: torch.Tensor, bi: torch.Tensor,
     weights wi [E, 3H], bi [3H] and recurrent weights wh [H, 3H], bh [3H].
 
     CPU tensors run :func:`gru_last_state_v3_reference`. CUDA tensors launch
-    the kernel, which takes bf16 operands, any E, and H a multiple of 32 (up
-    to the H whose state and embedding tiles fit in shared memory: above it
-    the launch raises); anything else raises. ``emb`` is zero-padded along
+    the kernel, which takes bf16 operands, any E, any B >= 1 and H a
+    multiple of 32, with ``gru_last_state_v2``'s cluster plan; anything else
+    raises. ``emb`` is zero-padded along
     E to a multiple of 8 where it is not one already, and ``wi`` is copied
     gate-major and zero-padded alike, so any layout of it will do.
     """
@@ -75,6 +75,8 @@ def gru_last_state_v3(emb: torch.Tensor, wi: torch.Tensor, bi: torch.Tensor,
         raise ValueError(f"{name}: emb must be 16-byte aligned (TMA)")
     hidden = wh.shape[0]
     out = torch.empty((batch, hidden), dtype=torch.float32, device=emb.device)
+    cluster, h16 = launch_plan(emb.device, batch, hidden, v3=True)
     _build.launch(name, "gru_last_state_v3_forward", emb.device, emb8, wi_t,
-                  bi, w_gk, bh, out, batch, t_len, hidden, e_dim, e8)
+                  bi, w_gk, bh, out, h16, batch, t_len, hidden, e_dim, e8,
+                  cluster)
     return out
