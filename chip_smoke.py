@@ -24,11 +24,14 @@ Phases, each of which raises (exit code 1) on failure:
    regimes (f32 over an f32 or an int8 payload, bf16 over a bf16 payload,
    bf16 over an int8 payload with factored weights), with and without
    dropout, and the keep mask the forward kernel emits equal to
-   ``keep_mask`` bit for bit; the int8 GEMM bit for bit at the ReGAT
+   ``keep_mask`` bit for bit; decode_att_dvp also at T=1 and T=0, at 64
+   boxes and at H=1040 (65 lane groups), in bf16 and f32; the int8 GEMM
+   bit for bit at the ReGAT
    path's shapes (3-D entry at B=8192 and B=1003, N=1024 and 2048; 2-D
    entry at the GCN projections' rows and at a ragged M=3001 with bias and
    ReLU) and at the ragged edges of its tiling (N=1000, K=96, and M=100
-   with N=40); gcn_chain_fused at B=8192 and 1003 in bf16 and f32;
+   with N=40); gcn_chain_fused at B=512, 1003 and 8192 in bf16 and f32,
+   and in bf16 at D=1000 (not a whole number of its 64-column tiles);
    dequant_matmul at the path's shape and the ragged edges of its tiling
    (N=1000, M=100, K=64 and 80); vocab_topk_lse at R=12288 with k = 1, 3
    and 8, and at R=3001, R=8 and V=1000 with an exact tie planted across
@@ -64,8 +67,10 @@ Phases, each of which raises (exit code 1) on failure:
 8. train, kernels against plain versions: the gradients of one step with the
    kernels and with every kernel swapped for its plain version (the same
    Philox masks), in f32 and then in bf16, within stated tolerances;
-9. train timing (for information): decode_att_fwd at the path's B=512,
-   each decode-attention kernel and its plain version at B=4096, and the
+9. train timing (for information): decode_att_fwd and decode_att_dvp at
+   the path's B=512, each decode-attention kernel and its plain version at
+   B=4096, each with its share of the bound (bytes, products or the issue
+   of its Philox draws, whichever is largest), and the
    training step at B=4096 (19 decoder
    steps) with the kernels and on the plain path (``use_pallas=False``), by
    CUDA events, with its peak device memory;
@@ -80,10 +85,11 @@ Phases, each of which raises (exit code 1) on failure:
    dequant_matmul;
 11. ReGAT timing (for information): the int8 GEMM at both entries' path
    shapes against its plain version and ``torch._int_mm`` (with its share
-   of the bound and its ratio to that call), gcn_chain_fused,
-   and the ReGAT forward at B=8192 with the kernels, on plain versions and
-   on the bf16 path without ``use_int8`` / ``use_pallas``, with peak
-   memory;
+   of the bound and its ratio to that call), gcn_chain_fused at B=512 and
+   8192 with its share of the bound,
+   and the ReGAT forward at B=8192 with the kernels, on plain versions, on
+   the bf16 path without ``use_int8`` / ``use_pallas`` and on the bf16 path
+   with ``use_pallas`` but without ``use_int8``, with peak memory;
 12. library kernels (no model path calls them, in the JAX package or the
    port): fused_multiply_attention_pool, gru_last_state and
    gru_last_state_v3 against their plain versions in bf16 at the JAX test
@@ -110,9 +116,10 @@ Phases, each of which raises (exit code 1) on failure:
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
-counts of each path, its time against its plain version and its bound;
-gru_v2's and decode_att_fwd's also at B=512, as ``ms_b512`` and
-``bound_ms_b512``) and
+counts of each path, its time against its plain version and its bound,
+with the term that sets it; gru_v2's, decode_att_fwd's, decode_att_dvp's
+and gcn_chain_fused's also at B=512, as ``ms_b512`` and ``bound_ms_b512``)
+and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -242,6 +249,14 @@ CLI_IMAGES, CLI_TRAIN_Q, CLI_VAL_Q, CLI_STEPS = 192, 2048, 1024, 4
 # (NVIDIA's H100 SXM data sheet, at its full power limit of 700 W)
 HBM_BYTES_PER_MS = 3.35e9
 PEAK_OPS_PER_MS = {"bf16": 989e9, "int8": 1979e9, "f32": 67e9}
+# the decode-attention kernels' third bound, the issue of their Philox
+# draws: a Philox4x32-10 call is at least 40 instructions (10 rounds of two
+# 32 x 32 -> 64-bit multiplies and two three-input XORs, csrc/decode_att.cu
+# philox4x32_10), and the card issues at most one instruction a lane a
+# clock on every lane, half the f32 rate above (which counts an FMA as two
+# operations): 33.5e9 instructions a ms
+PHILOX_INSTRUCTIONS = 40
+ISSUE_PER_MS = PEAK_OPS_PER_MS["f32"] / 2
 
 # kernel-name markers of the kinds a profile sums device time by, first
 # match wins
@@ -340,11 +355,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(nbytes_: int, ops: float, kind: str):
-    """(bound ms, what bounds it): the larger of the bytes over the HBM rate
-    and the operations over the card's peak for their type."""
-    mem, ops_ms = nbytes_ / HBM_BYTES_PER_MS, ops / PEAK_OPS_PER_MS[kind]
-    return (mem, "bytes") if mem >= ops_ms else (ops_ms, "operations")
+def bound(nbytes_: int, ops: float, kind: str, draws: int = 0):
+    """(bound ms, what bounds it, which term): the largest of the bytes over
+    the HBM rate, the operations over the card's peak for their type, and
+    the instructions of ``draws`` Philox calls over the issue rate. What
+    bounds it is "bytes" or "operations" (products and draws alike); the
+    term is "bytes", "products" or "philox issue"."""
+    terms = {"bytes": nbytes_ / HBM_BYTES_PER_MS, "products": ops / PEAK_OPS_PER_MS[kind],
+             "philox issue": draws * PHILOX_INSTRUCTIONS / ISSUE_PER_MS}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
 def gru_ops(batch: int, t_len: int, hidden: int, e_dim: int = 0) -> float:
@@ -607,13 +627,26 @@ def main() -> int:
         ref = decode_att.decode_att_bwd_reference(*args, objs=OBJS, thresh=thresh)
         for what, a, b in zip(("d_qp_pre", "m", "dl"), got, ref):
             check("decode_att_bwd", a, b, what)
-        steps = C_LEN - 1
-        dls = (torch.randn(steps, batch, OBJS, device=dev, generator=gen) * 0.01).to(qp.dtype)
-        qps = torch.rand(steps, batch, HIDDEN, device=dev, generator=gen).to(qp.dtype)
-        kw = dict(objs=OBJS, att_scale=scale, thresh=thresh, out_dtype=qp.dtype)
-        check("decode_att_dvp", decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **kw),
-              decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED, **kw),
-              f"T={steps} d_vp")
+        compare_dvp(batch, C_LEN - 1, OBJS, HIDDEN, qp.dtype, thresh, k, f"B={batch} {regime}")
+
+    def compare_dvp(batch: int, steps: int, objs: int, hidden: int, dtype, thresh,
+                    k=None, label: str = "") -> None:
+        """decode_att_dvp against its plain version on the same inputs: the
+        softmax cotangents of ``steps`` decode steps, their qp rows, k."""
+        rtol, atol_rel = ((ATT_F32_RTOL, ATT_F32_ATOL_REL) if dtype == torch.float32
+                          else (ATT_BF16_RTOL, ATT_BF16_ATOL_REL))
+        if k is None:
+            k = ((torch.rand(hidden, device=dev, generator=gen) * 2 - 1)
+                 * hidden ** -0.5).to(dtype)
+        dls = (torch.randn(steps, batch, objs, device=dev, generator=gen) * 0.01).to(dtype)
+        qps = torch.rand(steps, batch, hidden, device=dev, generator=gen).to(dtype)
+        kw = dict(objs=objs, att_scale=ATT_SCALE if thresh else 1.0, thresh=thresh,
+                  out_dtype=dtype)
+        want = decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED, **kw)
+        compare("decode_att_dvp", decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **kw), want,
+                atol_rel * want.float().abs().max().item(), rtol,
+                f"{label or f'B={batch} {dtype}'} objs={objs} H={hidden} "
+                + (f"thresh={thresh}" if thresh else "no dropout") + f" T={steps} d_vp")
 
     def int8_inputs(rows: int, n: int, xs_dtype, with_bias: bool, k: int = V_DIM):
         """The int8 GEMM's operands at a path shape: int8 rows with per-row
@@ -653,16 +686,16 @@ def main() -> int:
         require(same, f"{name} {shape} N={n}: kernel differs from its plain version")
         max_err[name] = max(max_err.get(name, 0.0), err)
 
-    def gcn_inputs(batch: int, dtype):
+    def gcn_inputs(batch: int, dtype, d: int = V_DIM):
         """gcn_chain_fused's operands: projections of unit scale, a ReLU'd
         correlation, spatial labels 0..11, a label-bias table."""
-        out_self = torch.randn(batch, OBJS, V_DIM, device=dev, generator=gen).to(dtype)
-        proj = torch.randn(batch, OBJS, V_DIM, device=dev, generator=gen).to(dtype)
+        out_self = torch.randn(batch, OBJS, d, device=dev, generator=gen).to(dtype)
+        proj = torch.randn(batch, OBJS, d, device=dev, generator=gen).to(dtype)
         alpha = torch.relu(torch.randn(batch, OBJS, OBJS, device=dev, generator=gen)).to(dtype)
         graph = torch.randint(0, 12, (batch, OBJS, OBJS), device=dev, generator=gen,
                               dtype=torch.int32)
-        bias = ((torch.rand(12, V_DIM, device=dev, generator=gen) * 2 - 1)
-                * V_DIM ** -0.5).to(dtype)
+        bias = ((torch.rand(12, d, device=dev, generator=gen) * 2 - 1)
+                * d ** -0.5).to(dtype)
         return out_self, proj, alpha, graph, bias
 
     # -- 3. kernels against their plain versions ---------------------------
@@ -673,6 +706,14 @@ def main() -> int:
             for regime in ("f32", "f32-int8", "bf16", "bf16-int8"):
                 for thresh in (ATT_THRESH, None):
                     compare_att(batch, regime, thresh)
+        # the deferred reduction's edges: one step (and none), the most boxes
+        # (a thread's last box set full), and an H whose 65 groups do not
+        # fill the threads of a block item
+        for steps, objs, hidden in ((1, OBJS, HIDDEN), (0, OBJS, HIDDEN),
+                                    (C_LEN - 1, 64, HIDDEN), (C_LEN - 1, OBJS, 1040)):
+            for dtype in (bf16, f32):
+                for thresh in (ATT_THRESH, None):
+                    compare_dvp(TRAIN_BATCH, steps, objs, hidden, dtype, thresh)
         # gru_v2 at the paths' B=512, a ragged B, the timed batches, a B
         # that reaches each cluster size the plan can choose, and H=2048,
         # whose state lives in device memory
@@ -746,14 +787,19 @@ def main() -> int:
         compare_int8(None, 3001, 1000, bf16, True, True)
         compare_int8(None, 3001, HIDDEN, f32, False, False, k=96)
         compare_int8(None, 100, 40, bf16, True, True, out_dtype=f32, k=96)
-        for batch in (REGAT_TIME_BATCH, 1003):
-            for dtype, rtol, atol_rel in ((bf16, GCN_BF16_RTOL, GCN_BF16_ATOL_REL),
-                                          (f32, GCN_F32_RTOL, GCN_F32_ATOL_REL)):
-                chain = gcn_inputs(batch, dtype)
+        # the chain at the requests' B=512, a ragged B and the timed B in
+        # both types, and in bf16 at a D that is not a whole number of the
+        # kernel's 64-column tiles
+        for batch, d, dtypes in ((SERVE_BATCH, V_DIM, (bf16, f32)), (1003, V_DIM, (bf16, f32)),
+                                 (REGAT_TIME_BATCH, V_DIM, (bf16, f32)), (1003, 1000, (bf16,))):
+            for dtype in dtypes:
+                rtol, atol_rel = ((GCN_BF16_RTOL, GCN_BF16_ATOL_REL) if dtype == bf16
+                                  else (GCN_F32_RTOL, GCN_F32_ATOL_REL))
+                chain = gcn_inputs(batch, dtype, d)
                 want = gcn_chain.gcn_chain_reference(*chain)
                 compare("gcn_chain_fused", gcn_chain.gcn_chain_fused(*chain), want,
                         atol_rel * want.float().abs().max().item(), rtol,
-                        f"B={batch} N={OBJS} D={V_DIM} {dtype}")
+                        f"B={batch} N={OBJS} D={d} {dtype}")
                 del chain, want
 
     # -- 4. serve a few requests through the port's main path --------------
@@ -1241,11 +1287,12 @@ def main() -> int:
                              lambda: decode_att.decode_att_fwd_reference(*fwd_small, **fkw),
                              20)
         small_bound = bound(nbytes(*small, *decode_att.decode_att_fwd(*fwd_small, **fkw)),
-                            2.0 * TRAIN_BATCH * OBJS * (HIDDEN + V_DIM), "f32")
+                            2.0 * TRAIN_BATCH * OBJS * (HIDDEN + V_DIM), "f32",
+                            decode_att.philox_draws(TRAIN_BATCH, OBJS, HIDDEN))
         extra["decode_att_fwd"] = {"ms_b512": small_ms[0], "bound_ms_b512": small_bound[0]}
         log(f"time decode_att_fwd B={TRAIN_BATCH} bf16 over the int8 payload, dropout "
             f"0.2: kernel {small_ms[0]:.4f} ms, plain {small_ms[1]:.4f} ms, bound "
-            f"{small_bound[0]:.4f} ms ({small_bound[1]}), share of the bound "
+            f"{small_bound[0]:.4f} ms ({small_bound[2]}), share of the bound "
             f"{small_bound[0] / small_ms[0]:.1%} [{card}]")
         del small, fwd_small
         vp, pool, w, qp, k = att_inputs(TRAIN_TIME_BATCH, "bf16-int8")
@@ -1255,7 +1302,9 @@ def main() -> int:
             lambda: decode_att.decode_att_fwd_reference(*fwd_args, **fkw), 10)
         att, att_v = decode_att.decode_att_fwd(*fwd_args, **fkw)
         att_ops = 2.0 * TRAIN_TIME_BATCH * OBJS * (HIDDEN + V_DIM)
-        bounds["decode_att_fwd"] = bound(nbytes(vp, pool, w, qp, k, att, att_v), att_ops, "f32")
+        step_draws = decode_att.philox_draws(TRAIN_TIME_BATCH, OBJS, HIDDEN)
+        bounds["decode_att_fwd"] = bound(nbytes(vp, pool, w, qp, k, att, att_v), att_ops, "f32",
+                                         step_draws)
         g_attv = torch.randn(TRAIN_TIME_BATCH, V_DIM, device=dev, generator=gen).to(bf16)
         bwd_args = (vp, pool, w, att, g_attv, ATT_SEED, ATT_STEP)
         bkw = dict(objs=OBJS, thresh=ATT_THRESH)
@@ -1264,23 +1313,34 @@ def main() -> int:
             lambda: decode_att.decode_att_bwd_reference(*bwd_args, **bkw), 10)
         bounds["decode_att_bwd"] = bound(
             nbytes(vp, pool, w, att, g_attv, *decode_att.decode_att_bwd(*bwd_args, **bkw)),
-            att_ops, "f32")
+            att_ops, "f32", step_draws)
+        # the deferred reduction over T = 19 steps at the path's B=512 and at
+        # B=4096
         steps = C_LEN - 1
-        dls = (torch.randn(steps, TRAIN_TIME_BATCH, OBJS, device=dev, generator=gen)
-               * 0.01).to(bf16)
-        qps = torch.rand(steps, TRAIN_TIME_BATCH, HIDDEN, device=dev, generator=gen).to(bf16)
         dkw = dict(objs=OBJS, att_scale=ATT_SCALE, thresh=ATT_THRESH, out_dtype=bf16)
-        times["decode_att_dvp"] = time_pair(
-            lambda: decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **dkw),
-            lambda: decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED, **dkw), 3)
-        bounds["decode_att_dvp"] = bound(
-            nbytes(dls, qps, k, decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **dkw)),
-            2.0 * steps * TRAIN_TIME_BATCH * OBJS * HIDDEN, "f32")
-        del vp, pool, w, qp, k, att, att_v, g_attv, dls, qps
+        for batch in (TRAIN_BATCH, TRAIN_TIME_BATCH):
+            dls = (torch.randn(steps, batch, OBJS, device=dev, generator=gen) * 0.01).to(bf16)
+            qps = torch.rand(steps, batch, HIDDEN, device=dev, generator=gen).to(bf16)
+            pair = time_pair(lambda: decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **dkw),
+                             lambda: decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED,
+                                                                         **dkw),
+                             20 if batch == TRAIN_BATCH else 3)
+            b = bound(nbytes(dls, qps, k, decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **dkw)),
+                      2.0 * steps * batch * OBJS * HIDDEN, "f32",
+                      decode_att.philox_draws(batch, OBJS, HIDDEN, steps))
+            if batch == TRAIN_BATCH:
+                extra["decode_att_dvp"] = {"ms_b512": pair[0], "bound_ms_b512": b[0]}
+                log(f"time decode_att_dvp B={batch} T={steps} bf16, dropout 0.2: kernel "
+                    f"{pair[0]:.4f} ms, plain {pair[1]:.4f} ms, bound {b[0]:.4f} ms ({b[2]}), "
+                    f"share of the bound {b[0] / pair[0]:.1%} [{card}]")
+            else:
+                times["decode_att_dvp"], bounds["decode_att_dvp"] = pair, b
+            del dls, qps
+        del vp, pool, w, qp, k, att, att_v, g_attv
     for name in TRAIN_KERNELS:
         log(f"time {name} B={TRAIN_TIME_BATCH} bf16 over the int8 payload, dropout "
             f"0.2: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
-            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), share of the bound "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][2]}), share of the bound "
             f"{bounds[name][0] / times[name][0]:.1%} [{card}]")
 
     x_q, scale = int8_feed(TRAIN_TIME_BATCH * OBJS, V_DIM)
@@ -1399,17 +1459,22 @@ def main() -> int:
                 f"{bounds[name][0] / times[name][0]:.1%}, kernel / torch._int_mm "
                 f"{times[name][0] / library[name]:.3f} [{card}]")
             del x_q, xs, w_q, w_scale, b, ops
-        chain = gcn_inputs(REGAT_TIME_BATCH, bf16)
-        times["gcn_chain_fused"] = time_pair(lambda: gcn_chain.gcn_chain_fused(*chain),
-                                             lambda: gcn_chain.gcn_chain_reference(*chain), 5)
-        chain_ops = 2.0 * REGAT_TIME_BATCH * OBJS * (OBJS * (2 * V_DIM + OBJS) + 12 * V_DIM)
-        bounds["gcn_chain_fused"] = bound(nbytes(*chain, gcn_chain.gcn_chain_fused(*chain)),
-                                          chain_ops, "bf16")
-        log(f"time gcn_chain_fused B={REGAT_TIME_BATCH} N={OBJS} D={V_DIM} bf16: kernel "
-            f"{times['gcn_chain_fused'][0]:.4f} ms, plain {times['gcn_chain_fused'][1]:.4f} "
-            f"ms, bound {bounds['gcn_chain_fused'][0]:.4f} ms "
-            f"({bounds['gcn_chain_fused'][1]}) [{card}]")
-        del chain
+        # the chain at the ReGAT requests' B=512 and at B=8192
+        for batch in (SERVE_BATCH, REGAT_TIME_BATCH):
+            chain = gcn_inputs(batch, bf16)
+            pair = time_pair(lambda: gcn_chain.gcn_chain_fused(*chain),
+                             lambda: gcn_chain.gcn_chain_reference(*chain),
+                             20 if batch == SERVE_BATCH else 5)
+            chain_ops = 2.0 * batch * OBJS * (OBJS * (2 * V_DIM + OBJS) + 12 * V_DIM)
+            b = bound(nbytes(*chain, gcn_chain.gcn_chain_fused(*chain)), chain_ops, "bf16")
+            log(f"time gcn_chain_fused B={batch} N={OBJS} D={V_DIM} bf16: kernel "
+                f"{pair[0]:.4f} ms, plain {pair[1]:.4f} ms, bound {b[0]:.4f} ms ({b[2]}), "
+                f"share of the bound {b[0] / pair[0]:.1%} [{card}]")
+            if batch == SERVE_BATCH:
+                extra["gcn_chain_fused"] = {"ms_b512": pair[0], "bound_ms_b512": b[0]}
+            else:
+                times["gcn_chain_fused"], bounds["gcn_chain_fused"] = pair, b
+            del chain
 
         x_q, scale = int8_feed(REGAT_TIME_BATCH * OBJS, V_DIM)
         big = {"q": torch.randint(0, NTOKEN, (REGAT_TIME_BATCH, Q_LEN), device=dev,
@@ -1427,7 +1492,8 @@ def main() -> int:
                 return regat(big)
 
         runs = {"kernels": lambda: regat(big), "plain versions": regat_plain,
-                "bf16, no use_int8 / use_pallas": lambda: regat_dense(big)}
+                "bf16, no use_int8 / use_pallas": lambda: regat_dense(big),
+                "bf16 with use_pallas (the chain), no use_int8": lambda: regat_bf16(big)}
         peaks = {}
         for label, run in runs.items():
             torch.cuda.synchronize()
@@ -1438,10 +1504,13 @@ def main() -> int:
             peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         fwd_k, fwd_p = time_pair(runs["kernels"], runs["plain versions"], 2)
         fwd_d = time_ms(runs["bf16, no use_int8 / use_pallas"], 3)
+        fwd_c = time_ms(runs["bf16 with use_pallas (the chain), no use_int8"], 3)
         log(f"time ReGAT forward B={REGAT_TIME_BATCH} int8 feed bf16: kernels {fwd_k:.3f} ms "
             f"({REGAT_TIME_BATCH / fwd_k * 1e3:.1f} q/s), plain versions {fwd_p:.3f} ms "
             f"({REGAT_TIME_BATCH / fwd_p * 1e3:.1f} q/s), bf16 without use_int8 and "
-            f"use_pallas {fwd_d:.3f} ms ({REGAT_TIME_BATCH / fwd_d * 1e3:.1f} q/s); peak "
+            f"use_pallas {fwd_d:.3f} ms ({REGAT_TIME_BATCH / fwd_d * 1e3:.1f} q/s), bf16 "
+            f"with use_pallas (gru_v2, dequant_matmul, gcn_chain_fused) and without "
+            f"use_int8 {fwd_c:.3f} ms ({REGAT_TIME_BATCH / fwd_c * 1e3:.1f} q/s); peak "
             f"memory above the weights and batch: " + ", ".join(
                 f"{k} {v:.2f} GiB" for k, v in peaks.items()) + f" [{card}]")
         if args.profile:
@@ -1581,6 +1650,7 @@ def main() -> int:
                 "max_abs_err": max_err[name],
                 "ms": times[name][0], "plain_ms": times[name][1],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "bound_term": bounds[name][2],
                 # torch._int_mm gives the int32 product of the int8 GEMM
                 # alone, cuBLAS's bf16 matmul the product of dequant_matmul
                 # and vocab_topk_lse alone, cuDNN's GRU the function of

@@ -296,3 +296,89 @@ def test_shapes_the_fwd_kernel_takes_reach_the_build(monkeypatch, tmp_path,
         da.decode_att_fwd(*ops, SEED, STEP, objs=objs, att_scale=SCALE,
                           thresh=205, emit_mask=True)
     assert _build.LAUNCHES == before
+
+
+def _meta_dvp(T=19, batch=4, objs=36, hidden=1024, dtype=torch.bfloat16,
+              qps_offset=0):
+    """decode_att_dvp's operands on the meta device; ``qps_offset`` starts
+    qps's data that many bytes into its storage."""
+    n = T * batch * hidden
+    per = torch.empty((), dtype=dtype).element_size()
+    qps = torch.empty(n + -(-qps_offset // per), device="meta", dtype=dtype)
+    if qps_offset:
+        qps = qps.view(torch.int8)[qps_offset:qps_offset + n * per].view(dtype)
+    return (torch.empty(T, batch, objs, device="meta", dtype=dtype),
+            qps[:n].view(T, batch, hidden),
+            torch.empty(hidden, device="meta", dtype=dtype))
+
+
+@pytest.mark.parametrize("case, kw, call_kw, exc, match", [
+    ("objs mismatch", dict(objs=36), dict(objs=35), ValueError, "objs=35"),
+    ("H=1000", dict(hidden=1000), {}, ValueError, "qps"),
+    ("objs=65", dict(objs=65), dict(objs=65), ValueError, "at most 64"),
+    ("qps align", dict(qps_offset=8), {}, ValueError, "16-byte"),
+    ("float16", dict(dtype=torch.float16), {}, TypeError, "float32 or bfloat16"),
+    ("out float16", {}, dict(out_dtype=torch.float16), TypeError, "out_dtype"),
+    ("thresh 256", {}, dict(thresh=256), ValueError, "thresh=256"),
+])
+def test_dvp_kernel_refuses_before_any_build(monkeypatch, tmp_path, case, kw,
+                                             call_kw, exc, match):
+    """What the deferred reduction cannot take raises before the library is
+    built: boxes that do not match dls, an H that is not a whole number of
+    16-lane groups, more than 64 boxes, qps off a 16-byte boundary (its
+    bulk copies), other types, a thresh outside [1, 255]."""
+    _no_nvcc(monkeypatch, tmp_path)
+    dls, qps, k = _meta_dvp(**kw)
+    args = dict(objs=dls.shape[2], att_scale=SCALE, thresh=205,
+                out_dtype=dls.dtype if dls.dtype != torch.float16 else torch.float32)
+    args.update(call_kw)
+    with pytest.raises(exc, match=match):
+        da.decode_att_dvp(dls, qps, k, SEED, **args)
+
+
+@pytest.mark.parametrize("T, batch, objs, hidden, dtype", [
+    (19, 512, 36, 1024, torch.bfloat16), (19, 4096, 36, 1024, torch.bfloat16),
+    (19, 1003, 36, 1024, torch.float32), (1, 512, 36, 1024, torch.bfloat16),
+    (0, 512, 36, 1024, torch.bfloat16), (19, 512, 64, 1024, torch.bfloat16),
+    (19, 512, 36, 1040, torch.bfloat16), (3, 1, 5, 16, torch.float32)])
+def test_shapes_the_dvp_kernel_takes_reach_the_build(monkeypatch, tmp_path, T,
+                                                     batch, objs, hidden,
+                                                     dtype):
+    """The training path's B=512, the timed B=4096, a ragged f32 B, one step
+    and none, 64 boxes, H=1040 (65 groups) and the smallest widths pass
+    every check of decode_att_dvp and go to the build, which raises here
+    (no nvcc) and counts no launch."""
+    _no_nvcc(monkeypatch, tmp_path)
+    dls, qps, k = _meta_dvp(T, batch, objs, hidden, dtype)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError):
+        da.decode_att_dvp(dls, qps, k, SEED, objs=objs, att_scale=SCALE,
+                          thresh=205, out_dtype=dtype)
+    assert _build.LAUNCHES == before
+
+
+def test_dvp_bound_counts_the_philox_draws():
+    """The deferred reduction's bound (chip_smoke.py) counts its Philox
+    draws: at B=4096, 36 boxes, H=1024 and T=19 there are 179,306,496, and
+    at 40 instructions a draw over 33.5e9 instructions a ms they take 0.214
+    ms, more than its bytes (0.139 ms): the issue of the draws bounds it.
+    One step of the forward or backward draws a 19th of them, 0.011 ms,
+    below their bytes."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bound", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    draws = da.philox_draws(4096, 36, 1024, 19)
+    assert draws == 179_306_496
+    dvp_bytes = 2 * (19 * 4096 * (36 + 1024) + 1024 + 4096 * 36 * 1024)
+    ms, by, term = smoke.bound(dvp_bytes, 2.0 * 19 * 4096 * 36 * 1024, "f32",
+                               draws)
+    assert (by, term) == ("operations", "philox issue")
+    assert ms == pytest.approx(0.2141, abs=5e-5)
+    assert smoke.bound(dvp_bytes, 0, "f32")[0] == pytest.approx(0.139, abs=1e-3)
+    step = da.philox_draws(4096, 36, 1024)
+    assert step * 19 == draws
+    assert step * smoke.PHILOX_INSTRUCTIONS / smoke.ISSUE_PER_MS == \
+        pytest.approx(0.0113, abs=1e-4)

@@ -200,3 +200,67 @@ def test_gcn_chain_on_other_devices_goes_to_the_kernel(monkeypatch, tmp_path):
         call(labels=17)
     with pytest.raises(ValueError, match="multiple of 8"):
         call(d=100)
+
+
+def _meta_chain(batch=2, n=N, d=D, labels=L, dtype=torch.bfloat16, offset=None):
+    """gcn_chain_fused's operands on the meta device; ``offset`` = (name,
+    bytes) starts that operand's data that many bytes into its storage."""
+    def make(name, shape, dt):
+        count = int(np.prod(shape))
+        skip = offset[1] if offset and offset[0] == name else 0
+        per = torch.empty((), dtype=dt).element_size()
+        t = torch.empty(count + -(-skip // per), device="meta", dtype=dt)
+        if skip:
+            t = t.view(torch.int8)[skip:skip + count * per].view(dt)
+        return t[:count].view(*shape)
+    return (make("out_self", (batch, n, d), dtype), make("proj", (batch, n, d), dtype),
+            make("alpha_raw", (batch, n, n), dtype),
+            make("graph", (batch, n, n), torch.int32),
+            make("bias", (labels, d), dtype))
+
+
+def _no_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+
+
+@pytest.mark.parametrize("case, kw, match", [
+    ("N=20", dict(n=20), "N=36"),
+    ("17 labels", dict(labels=17), "16 labels"),
+    ("D=1004", dict(d=1004), "multiple of 8"),
+    ("float16", dict(dtype=torch.float16), "float32 or bfloat16"),
+    ("out_self align", dict(offset=("out_self", 8)), "16-byte"),
+    ("proj align", dict(offset=("proj", 8)), "16-byte"),
+    ("bias align", dict(offset=("bias", 8)), "16-byte"),
+])
+def test_gcn_chain_kernel_refuses_before_any_build(monkeypatch, tmp_path, case,
+                                                   kw, match):
+    """What the chain kernels cannot take raises before the library is
+    built: another box count, more than 16 labels, a D that is not a whole
+    number of 16-byte pieces, another type, and the TMA-read operands off a
+    16-byte boundary."""
+    _no_nvcc(monkeypatch, tmp_path)
+    labels = kw.get("labels", L)
+    with pytest.raises((ValueError, TypeError), match=match):
+        gcn_chain.gcn_chain_fused(*_meta_chain(**kw), num_labels=labels)
+
+
+@pytest.mark.parametrize("batch, d, labels, dtype", [
+    (512, 2048, 12, torch.bfloat16), (8192, 2048, 12, torch.bfloat16),
+    (1003, 1000, 12, torch.bfloat16), (1, 8, 16, torch.bfloat16),
+    (3, 8200, 15, torch.bfloat16), (1003, 2048, 12, torch.float32)])
+def test_shapes_the_chain_kernel_takes_reach_the_build(monkeypatch, tmp_path,
+                                                      batch, d, labels, dtype):
+    """The requests' B=512, the timed B=8192, a ragged B with a D that is
+    not a whole number of 64-column tiles, the narrowest D, a D of more
+    than one resident column group, and f32 pass every check of
+    gcn_chain_fused and go to the build, which raises here (no nvcc) and
+    counts no launch."""
+    _no_nvcc(monkeypatch, tmp_path)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError):
+        gcn_chain.gcn_chain_fused(*_meta_chain(batch, N, d, labels, dtype),
+                                  num_labels=labels)
+    assert _build.LAUNCHES == before

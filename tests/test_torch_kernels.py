@@ -19,7 +19,7 @@ from vqa_tpu.ops.pallas.gru_v2 import gru_last_state_v2 as jax_gru_v2
 from vqa_tpu.ops.pallas.lazyv_pool import pool_int8 as jax_pool_int8
 from vqa_tpu.ops.pallas.vocab_topk import vocab_topk_lse as jax_vocab_topk_lse
 from vqa_tpu_torch.ops.kernels import (
-    _build, feed_gemm, gru_v2, lazyv_pool, vocab_topk)
+    _build, decode_att, feed_gemm, gcn_chain, gru_v2, lazyv_pool, vocab_topk)
 
 BF16 = ml_dtypes.bfloat16
 # One bf16 rounding of an f32 sum: two sums in different orders may land on
@@ -362,3 +362,85 @@ def test_shapes_the_gru_sequence_kernel_takes_reach_the_build(monkeypatch,
                                  torch.empty(hidden, 3 * hidden, **meta),
                                  torch.empty(3 * hidden, **meta))
     assert _build.LAUNCHES == before
+
+
+# the batches the paths launch the chain and the deferred reduction at (the
+# requests' and the training path's B=512), the timed ones, a ragged one
+# and B=1; the widths chip_smoke.py's phase 3 runs and the ends of what the
+# wrappers take
+PLAN_BATCHES = [1, 512, 1003, 4096, 8192]
+
+
+@pytest.mark.parametrize("batch", PLAN_BATCHES)
+@pytest.mark.parametrize("d", [2048, 1000, 8, 2056, 8192])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gcn_chain_plan_covers_every_tile_once(batch, d, sms):
+    """Walking the bf16 chain kernel's blocks as it does (block i: column
+    group i % groups, images i // groups + (grid // groups) q, the group's
+    64-column tiles) covers every (image, tile) exactly once; the grid is
+    at most one block an SM per group and a whole number of groups, the
+    ring's depth a positive multiple of the four consumer pairs, and the
+    shared memory within 227 KB."""
+    groups, tpg, stages, grid = gcn_chain._plan(batch, d, sms)
+    n_tiles = -(-d // gcn_chain._D_TILE)
+    cover = np.zeros((batch, n_tiles), dtype=np.int64)
+    per_group = grid // groups
+    assert grid % groups == 0 and 1 <= per_group <= max(1, sms // groups)
+    for block in range(grid):
+        t0 = (block % groups) * tpg
+        cover[block // groups::per_group, t0:min(n_tiles, t0 + tpg)] += 1
+    assert (cover == 1).all()
+    assert tpg <= gcn_chain._MAX_GROUP_TILES
+    assert stages >= gcn_chain._PAIRS and stages % gcn_chain._PAIRS == 0
+    assert gcn_chain._smem_bytes(stages, tpg) <= 232448
+
+
+def test_gcn_chain_plan_at_the_path_batches():
+    """On a 132-SM H100 at D=2048: one column group of 32 tiles whose bias
+    stays resident, 8 ring stages, one block an SM at B=512 and 8192."""
+    assert gcn_chain._plan(512, 2048, 132) == (1, 32, 8, 132)
+    assert gcn_chain._plan(8192, 2048, 132) == (1, 32, 8, 132)
+    assert gcn_chain._plan(3, 2048, 132) == (1, 32, 8, 3)
+    assert gcn_chain._plan(8, 8192, 132) == (4, 32, 8, 32)
+
+
+@pytest.mark.parametrize("batch", PLAN_BATCHES)
+@pytest.mark.parametrize("objs, H", [(36, 1024), (64, 1024), (36, 1040),
+                                     (5, 16), (36, 8192), (64, 4112)])
+@pytest.mark.parametrize("T, itemsize", [(19, 2), (19, 4), (1, 2), (0, 2)])
+def test_dvp_plan_covers_every_box_group_once(batch, objs, H, T, itemsize):
+    """The deferred reduction's block items, as the kernel maps its 256
+    consumer threads onto them (thread tid: group slice offset tid % gc,
+    box set tid // gc of the item's slice, boxes nb set .. nb set + nb - 1),
+    cover every (box, 16-lane group) of a row exactly once; the grid is two
+    blocks an SM and at most one an item, a stage holds at least one step,
+    and the shared memory fits."""
+    nb, gc, tc, stages, grid = decode_att._dvp_plan(batch, objs, H, T,
+                                                    itemsize, 132)
+    G = H // decode_att.LANES
+    sc, g_items, s_items = decode_att._dvp_items(objs, H, nb, gc)
+    S = -(-objs // nb)
+    cover = np.zeros((objs, G), dtype=np.int64)
+    tid = np.arange(256)
+    gl, sl = tid % gc, tid // gc
+    for r in range(g_items * s_items):
+        g = (r // s_items) * gc + gl
+        box_set = (r % s_items) * sc + sl
+        active = (sl < sc) & (g < G) & (box_set < S)
+        for bx in range(nb):
+            n = box_set * nb + bx
+            ok = active & (n < objs)
+            np.add.at(cover, (n[ok], g[ok]), 1)
+    assert (cover == 1).all()
+    assert 1 <= nb <= 4 and 1 <= gc <= 256 and tc >= 1 and stages >= 2
+    assert grid == min(batch * g_items * s_items, 2 * 132)
+    assert decode_att._dvp_smem_bytes(objs, gc, tc, stages, itemsize) <= 232448
+
+
+def test_dvp_plan_at_the_path_shape():
+    """At 36 boxes, H=1024, T=19 in bf16 on a 132-SM H100: 3 boxes a
+    thread, so a row is 3 items of 64 groups x 4 box sets (every thread
+    busy), 8 steps a stage (2 KB of qp each), 4 stages, two blocks an SM."""
+    assert decode_att._dvp_plan(4096, 36, 1024, 19, 2, 132) == (3, 64, 8, 4, 264)
+    assert decode_att._dvp_plan(512, 36, 1024, 19, 2, 132) == (3, 64, 8, 4, 264)
+    assert decode_att._dvp_items(36, 1024, 3, 64) == (4, 1, 3)

@@ -19,12 +19,16 @@
 // mask is a pure function of its coordinates, so the three kernels and the
 // plain versions agree for any launch shape and any batch size.
 //
-// What bounds them on an H100: memory. At B=4096, 36 boxes, H=1024 and an
-// int8 payload of D=2048, fwd and bwd each read vp (0.30 GB bf16) and the
-// payload (0.30 GB) once: about 0.18 ms at 3.35 TB/s. dvp reads the T steps'
-// dl and qp and writes d_vp (0.30 GB). The Philox draws are arithmetic on
-// the side: one call per 16 mask bytes, about 9.4 M a step for fwd and bwd
-// and T times that for dvp, where they, and not memory, may bound it.
+// What bounds them on an H100. fwd and bwd: memory. At B=4096, 36 boxes,
+// H=1024 and an int8 payload of D=2048 each reads vp (0.30 GB bf16) and the
+// payload (0.30 GB) once: 0.188 ms at 3.35 TB/s; their Philox draws (one
+// call per 16 mask bytes, 9.4 M a step) take 0.011 ms at one instruction a
+// lane a clock, 40 instructions a draw. dvp: the issue of its draws. Over
+// T=19 steps it draws 179 M times (0.214 ms by that count) and moves 0.47
+// GB (0.139 ms). The count is a floor: a draw's twenty 32 x 32 -> 64-bit
+// multiplies are not full-rate instructions, and masking its 16 lanes
+// adds a compare each (tools/time_kernels.py times dvp with dropout off
+// beside it, which isolates what the draws cost).
 //
 // Design. fwd is a streaming pipeline, so that a row's payload is in
 // flight while its logits and softmax run: a persistent grid of two blocks
@@ -34,30 +38,52 @@
 // bulk copies (cp.async.bulk, no tensor map: rows of qp, vp2 and pool2 are
 // contiguous) into an mbarrier ring of 16 KB stages (192 KB an SM, shared
 // by its blocks; larger stages where one box is larger), in the order qp
-// row b,
-// vp boxes of row b (8 a stage in bf16 at H=1024), payload boxes of row b
-// (8 a stage in int8 at D=2048), then row b + 1, so the ring's depth covers
-// the softmax between the two. Eight consumer warps take each stage as it
-// lands: the qp stage becomes each lane's qp * k * scale for its 16-lane
-// groups, in registers (the same groups of every box); a vp stage gives a
-// box to a warp (or to `wpb` warps, each a share of the groups), one
-// Philox draw a group, its bytes compared with thresh four at a time
+// row b, vp boxes of row b (8 a stage in bf16 at H=1024), payload boxes of
+// row b (8 a stage in int8 at D=2048), then row b + 1, so the ring's depth
+// covers the softmax between the two. Eight consumer warps take each stage
+// as it lands: the qp stage becomes each lane's qp * k * scale for its
+// 16-lane groups, in registers (the same groups of every box); a vp stage
+// gives a box to a warp (or to `wpb` warps, each a share of the groups),
+// one Philox draw a group, its bytes compared with thresh four at a time
 // (__vcmpltu4) into masks that zero the dropped lanes' raw bits before one
 // 16-lane product, the first draw computed before the stage's bytes are
-// waited for; warp 0 runs the softmax over the
-// <= 64 boxes with shuffles; in a payload stage each of the 256 consumer
-// threads owns 8 lanes of D (at D=2048 every thread is busy) and sums
-// att * w * pool over the boxes in registers, in box order. Each stage goes
-// back to the producer as soon as the warps have read it. bwd gives one
-// block of 256 threads to a batch row: m is one warp reduction per box
-// over D, the softmax cotangent one thread per box, and d_qp_pre splits
-// the boxes over 4 thread groups whose partial rows are added in shared
-// memory. fwd, measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W;
-// PERF.md): 0.284 ms at B=4096 (66% of its 0.188 ms bound; the
-// one-block-a-row design it replaced took 0.404) and 0.051 ms at B=512.
-// dvp gives each thread one (row, box, 16-lane group)
-// and loops over t, its 16 sums in registers: d_vp is written once and the
-// [T, B, objs, H] product never exists.
+// waited for; warp 0 runs the softmax over the <= 64 boxes with shuffles;
+// in a payload stage each of the 256 consumer threads owns 8 lanes of D (at
+// D=2048 every thread is busy) and sums att * w * pool over the boxes in
+// registers, in box order. Each stage goes back to the producer as soon as
+// the warps have read it.
+//
+// bwd gives one block of 256 threads to a batch row: m is one warp
+// reduction per box over D, the softmax cotangent one thread per box, and
+// d_qp_pre splits the boxes over 4 thread groups whose partial rows are
+// added in shared memory.
+//
+// dvp stages each batch row once and spends its threads on the draws: a
+// persistent grid of two blocks an SM takes block items (decode_att.py
+// _dvp_plan): one row's slice of up to 256 lane groups by a slice of its
+// box sets. One producer warp fills an mbarrier ring of 4 stages, each 8
+// steps of the slice's qp rows (bulk copies, 2 KB a step at H=1024 in
+// bf16) and of the row's dl (4-byte cp.async copies of the words that hold
+// it, whose landing each lane counts on the stage's barrier, so the
+// producer never waits on a load). Each of the 256 consumer threads owns
+// one 16-lane group and 3 boxes (nb, from the plan; at 36 boxes and
+// H=1024 a row is 3 items and every thread is busy): per step it unpacks
+// qp_t's 16 lanes to f32 once for its boxes, draws each box's mask, keeps
+// lane 4 i + j where byte j of word i, shifted to the top, is below
+// thresh << 24 (one compare, which predicates the lane's FMA), and keeps
+// its 16 sums a box in registers, summed over t in ascending order and
+// then multiplied by att_scale * k. Every thread runs every step (the idle
+// ones on a clamped box), so the warp stays converged, the step and key
+// schedule are uniform, and the boxes' draws interleave (cuobjdump -sass:
+// each round two IMAD.WIDE.U32 and two LOP3, the keys in UIADD3s). d_vp is written
+// once, 16-byte stores, neighbouring threads on neighbouring groups.
+//
+// Measured (chip_smoke.py and tools/time_kernels.py, NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md): fwd 0.2742 ms at B=4096 (69% of its bound) and 0.0595
+// at B=512; dvp 1.0872 ms at B=4096, 20% of its 0.214 ms issue bound (0.43
+// ms with dropout off, which draws nothing; the first design, one thread a
+// (row, box, group) reading qp again for every box, 1.51), and 0.1380 at
+// B=512.
 
 #include <cmath>
 #include <cstdint>
@@ -623,34 +649,169 @@ struct DvpArgs {
   float att_scale;
 };
 
-template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads) decode_att_dvp_kernel(DvpArgs a) {
-  const int b = blockIdx.x;
-  const int G = a.H / kLanes;
-  const int p = blockIdx.y * kThreads + threadIdx.x;   // (box, lane group)
-  if (p >= a.objs * G) return;
-  const int n = p / G, g = p % G;
-  const T* dls = static_cast<const T*>(a.dls);
-  const T* qps = static_cast<const T*>(a.qps);
-  float acc[kLanes];
-#pragma unroll
-  for (int i = 0; i < kLanes; ++i) acc[i] = 0.f;
-  for (int t = 0; t < a.T; ++t) {
-    const size_t tb = static_cast<size_t>(t) * a.B + b;
-    const float d = to_f(dls[tb * a.objs + n]);
-    float q[kLanes];
-    load16(qps + tb * a.H + g * kLanes, q);
-    const uint32_t bits = keep_bits(a.seed, t, b, n, g, a.thresh);
-#pragma unroll
-    for (int i = 0; i < kLanes; ++i)
-      if ((bits >> i) & 1u) acc[i] += d * q[i];
+// The deferred reduction's plan (decode_att.py _dvp_plan): a thread owns
+// one 16-lane group and `nb` boxes; a block item is one batch row's `gc`
+// groups (a slice of the row) by 256 / gc box sets of nb boxes; a ring
+// stage holds `tc` steps of that slice of qp, and of the row's dl (as the
+// 4-byte words that hold it, at the row's offset in its first word).
+struct DvpPlan {
+  int nb, gc, tc, stages;
+};
+constexpr int kDvpConsumers = 256;
+constexpr int kDvpWarps = kDvpConsumers / 32;
+constexpr int kDvpThreads = kDvpConsumers + 32;
+constexpr int kDvpMaxBoxes = 4;
+
+int round128(int x) { return (x + 127) / 128 * 128; }
+
+struct DvpShape {
+  int G, S, sc, g_items, s_items, row_bytes, q_bytes, dl_stride, stage_bytes;
+};
+
+DvpShape dvp_shape(const DvpPlan& pl, int objs, int H, int t_size) {
+  DvpShape sh;
+  sh.G = H / kLanes;
+  sh.S = (objs + pl.nb - 1) / pl.nb;
+  sh.sc = kDvpConsumers / pl.gc;
+  sh.g_items = (sh.G + pl.gc - 1) / pl.gc;
+  sh.s_items = (sh.S + sh.sc - 1) / sh.sc;
+  sh.row_bytes = pl.gc * kLanes * t_size;
+  sh.q_bytes = round128(pl.tc * sh.row_bytes);
+  sh.dl_stride = (objs * t_size + 4 + 15) / 16 * 16;   // a row and its misalignment
+  sh.stage_bytes = sh.q_bytes + round128(pl.tc * sh.dl_stride);
+  return sh;
+}
+
+size_t dvp_smem(const DvpPlan& pl, const DvpShape& sh) {
+  return 128 + size_t(pl.stages) * sh.stage_bytes + 2 * size_t(pl.stages) * sizeof(uint64_t);
+}
+
+template <typename T, typename O, int NB, bool kDropout>
+__global__ void __launch_bounds__(kDvpThreads, 2)
+decode_att_dvp_kernel(const DvpArgs a, const DvpPlan pl, const DvpShape sh) {
+  extern __shared__ unsigned char dsmem_raw[];
+  unsigned char* ring = align_smem<128>(dsmem_raw);
+  const int RS = pl.stages, SB = sh.stage_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + size_t(RS) * SB);
+  uint64_t* empty = full + RS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int objs = a.objs, H = a.H, steps = a.T, B = a.B, tc = pl.tc;
+  const int ipr = sh.g_items * sh.s_items;
+  const long long items = static_cast<long long>(B) * ipr;
+
+  if (tid == 0) {
+    for (int s = 0; s < RS; ++s) {
+      mbar_init(&full[s], 33);          // each producer lane's copies, lane 0, the bytes
+      mbar_init(&empty[s], kDvpWarps);  // one arrival from each consumer warp
+    }
+    mbar_init_fence();
   }
-  const T* k = static_cast<const T*>(a.k) + g * kLanes;
+  __syncthreads();
+
+  if (warp == kDvpWarps) {
+    // ---- producer warp: each stage's qp rows by bulk copies (lane 0), its
+    // dl rows by 4-byte cp.async copies (all lanes) of the aligned words
+    // that hold them, each lane's landing counted on the stage's barrier ----
+    const unsigned char* qps = static_cast<const unsigned char*>(a.qps);
+    const unsigned char* dls = static_cast<const unsigned char*>(a.dls);
+    const size_t dl_row = size_t(objs) * sizeof(T);
+    int it = 0;
+    for (long long j = blockIdx.x; j < items; j += gridDim.x) {
+      const int b = static_cast<int>(j / ipr), gb = static_cast<int>(j % ipr) / sh.s_items;
+      const int g0 = gb * pl.gc, gcount = min(pl.gc, sh.G - g0);
+      const uint32_t bytes = static_cast<uint32_t>(gcount * kLanes * sizeof(T));
+      for (int t0 = 0; t0 < steps; t0 += tc, ++it) {
+        const int s = it % RS, nt = min(tc, steps - t0);
+        mbar_wait(&empty[s], ((it / RS) & 1) ^ 1);
+        unsigned char* st = ring + size_t(s) * SB;
+        for (int i = 0; i < nt; ++i) {
+          const size_t r0 = (size_t(t0 + i) * B + b) * dl_row, w0 = r0 & ~size_t(3);
+          const int words = static_cast<int>((r0 + dl_row - w0 + 3) / 4);
+          for (int x = lane; x < words; x += 32)
+            cp_async4(st + sh.q_bytes + i * sh.dl_stride + 4 * x, dls + w0 + 4 * x);
+        }
+        cp_async_mbar_arrive(&full[s]);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], bytes * nt);
+          for (int i = 0; i < nt; ++i)
+            bulk_load(st + size_t(i) * sh.row_bytes,
+                      qps + ((size_t(t0 + i) * B + b) * H + size_t(g0) * kLanes) * sizeof(T),
+                      bytes, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: thread (gl, sl) of an item owns group g0 + gl and the
+  // boxes nb (s0 + sl) .. + nb - 1 ----
+  const int gl = tid % pl.gc, sl = tid / pl.gc;
+  // lane 4 i + j is kept where byte j of word i is below thresh: that byte
+  // shifted to the top, compared with thresh << 24 (one unsigned compare)
+  const uint32_t t24 = a.thresh << 24;
+  const T* kp = static_cast<const T*>(a.k);
+  O* out = static_cast<O*>(a.out);
+  int it = 0;
+  for (long long j = blockIdx.x; j < items; j += gridDim.x) {
+    const int b = static_cast<int>(j / ipr), r = static_cast<int>(j % ipr);
+    const int g = (r / sh.s_items) * pl.gc + gl;
+    const int set = (r % sh.s_items) * sh.sc + sl;
+    const bool active = sl < sh.sc && g < sh.G && set < sh.S;
+    const int n0 = set * NB;
+    float acc[NB][kLanes];
 #pragma unroll
-  for (int i = 0; i < kLanes; ++i) acc[i] *= a.att_scale * to_f(k[i]);
-  store16(static_cast<O*>(a.out) + (static_cast<size_t>(b) * a.objs + n) * a.H +
-              g * kLanes,
-          acc);
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) acc[i][l] = 0.f;
+    for (int t0 = 0; t0 < steps; t0 += tc, ++it) {
+      const int s = it % RS, nt = min(tc, steps - t0);
+      mbar_wait(&full[s], (it / RS) & 1);
+      const unsigned char* st = ring + size_t(s) * SB;
+      const unsigned char* dl_s = st + sh.q_bytes;
+      // every thread runs the steps, the idle ones on box objs - 1, so that
+      // the warp stays converged: t, b and the key schedule stay uniform,
+      // and the boxes' draws have no branch between them to interleave
+      for (int i = 0; i < nt; ++i) {
+        const uint32_t t = static_cast<uint32_t>(t0 + i);
+        // qp_t's 16 lanes as f32, once for all of this thread's boxes
+        float q[kLanes];
+        load16(reinterpret_cast<const T*>(st + size_t(i) * sh.row_bytes) + gl * kLanes, q);
+        const T* dl_t = reinterpret_cast<const T*>(
+            dl_s + i * sh.dl_stride + (((size_t(t) * B + b) * objs * sizeof(T)) & 3));
+#pragma unroll
+        for (int bx = 0; bx < NB; ++bx) {
+          const int n = min(n0 + bx, objs - 1);
+          const float d = to_f(dl_t[n]);
+          if constexpr (kDropout) {
+            const uint4 w = philox4x32_10(b, n, g, a.seed, t);
+            const uint32_t m[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int l = 0; l < kLanes; ++l)
+              if ((m[l >> 2] << (24 - 8 * (l & 3))) < t24) acc[bx][l] = fmaf(d, q[l], acc[bx][l]);
+          } else {
+#pragma unroll
+            for (int l = 0; l < kLanes; ++l) acc[bx][l] = fmaf(d, q[l], acc[bx][l]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    if (active) {
+      float kk[kLanes];
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) kk[l] = to_f(kp[g * kLanes + l]);
+#pragma unroll
+      for (int bx = 0; bx < NB; ++bx) {
+        const int n = n0 + bx;
+        if (n < objs) {
+#pragma unroll
+          for (int l = 0; l < kLanes; ++l) acc[bx][l] *= a.att_scale * kk[l];
+          store16(out + (size_t(b) * objs + n) * H + g * kLanes, acc[bx]);
+        }
+      }
+    }
+  }
 }
 
 template <typename Kernel>
@@ -750,25 +911,62 @@ extern "C" int decode_att_bwd(const void* vp, const void* pool, const void* w,
   return static_cast<int>(e);
 }
 
+namespace {
+
+// the kernel with NB boxes a thread (its sums stay in registers)
+template <typename T, typename O, int NB, bool kDropout>
+cudaError_t dvp_launch_k(const DvpArgs& a, const DvpPlan& pl, int grid, cudaStream_t s) {
+  const DvpShape sh = dvp_shape(pl, a.objs, a.H, sizeof(T));
+  const size_t smem = dvp_smem(pl, sh);
+  cudaError_t e = set_smem(decode_att_dvp_kernel<T, O, NB, kDropout>, smem);
+  if (e != cudaSuccess) return e;
+  decode_att_dvp_kernel<T, O, NB, kDropout><<<grid, kDvpThreads, smem, s>>>(a, pl, sh);
+  return cudaGetLastError();
+}
+
+template <typename T, typename O, int NB>
+cudaError_t dvp_launch_nb(const DvpArgs& a, const DvpPlan& pl, int grid, cudaStream_t s) {
+  return a.thresh ? dvp_launch_k<T, O, NB, true>(a, pl, grid, s)
+                  : dvp_launch_k<T, O, NB, false>(a, pl, grid, s);
+}
+
+template <typename T, typename O>
+cudaError_t dvp_launch(const DvpArgs& a, const DvpPlan& pl, int grid, cudaStream_t s) {
+  switch (pl.nb) {
+    case 1: return dvp_launch_nb<T, O, 1>(a, pl, grid, s);
+    case 2: return dvp_launch_nb<T, O, 2>(a, pl, grid, s);
+    case 3: return dvp_launch_nb<T, O, 3>(a, pl, grid, s);
+    default: return dvp_launch_nb<T, O, 4>(a, pl, grid, s);
+  }
+}
+
+}  // namespace
+
 // d_vp [B, objs * H] from dls [T, B, objs], qps [T, B, H] and k [H]; act as
-// above for the inputs, out_kind 0 f32 / 1 bf16 for the output.
+// above for the inputs, out_kind 0 f32 / 1 bf16 for the output. The plan
+// (nb boxes a thread, gc groups and tc steps a stage, ring stages, grid) is
+// decode_att.py _dvp_plan's; qps and out 16-byte aligned.
 extern "C" int decode_att_dvp(const void* dls, const void* qps, const void* k,
                               void* out, unsigned seed, int T, int B, int objs,
                               int H, float att_scale, int thresh, int act,
-                              int out_kind, void* stream) {
+                              int out_kind, int nb, int gc, int tc, int stages,
+                              int grid, void* stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
-  if (T < 0 || bad_shape(objs, H, kLanes)) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 0 || bad_shape(objs, H, kLanes) || nb < 1 || nb > kDvpMaxBoxes || gc < 1 ||
+      gc > kDvpConsumers || gc > H / kLanes || tc < 1 || stages < 1 || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const DvpArgs a{dls, qps, k, out, seed, static_cast<uint32_t>(thresh), T, B, objs,
                   H, att_scale};
-  const dim3 grid(B, (objs * (H / kLanes) + kThreads - 1) / kThreads);
+  const DvpPlan pl{nb, gc, tc, stages};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (act == 0 && out_kind == 0)
-    decode_att_dvp_kernel<float, float><<<grid, kThreads, 0, s>>>(a);
+    e = dvp_launch<float, float>(a, pl, grid, s);
   else if (act == 0)
-    decode_att_dvp_kernel<float, __nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+    e = dvp_launch<float, __nv_bfloat16>(a, pl, grid, s);
   else if (out_kind == 0)
-    decode_att_dvp_kernel<__nv_bfloat16, float><<<grid, kThreads, 0, s>>>(a);
+    e = dvp_launch<__nv_bfloat16, float>(a, pl, grid, s);
   else
-    decode_att_dvp_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+    e = dvp_launch<__nv_bfloat16, __nv_bfloat16>(a, pl, grid, s);
+  return static_cast<int>(e);
 }

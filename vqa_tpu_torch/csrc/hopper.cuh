@@ -10,7 +10,8 @@
 //   stage, which threads read), and zero-fills what lies past the tensor's
 //   edge.
 // - mbarriers: init, arrive, arrive with an expected transaction count, and
-//   the wait on a phase parity; 1-D bulk copies (no tensor map).
+//   the wait on a phase parity; 1-D bulk copies (no tensor map); TMA stores
+//   of a box and the waits on their bulk groups (gcn_chain.cu).
 // - clusters: rank and id, the cluster-wide barrier, arrivals on a peer
 //   block's mbarrier and bulk copies into its shared memory (mapa), and the
 //   wait that acquires what peers released.
@@ -79,6 +80,14 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, i
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `p` (in dynamic shared memory) rounded up to a multiple of N bytes by
+// pointer arithmetic, so that the compiler keeps knowing it is shared
+// memory (a round trip through an integer makes its accesses generic)
+template <int N>
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  return p + ((N - (smem_addr(p) & (N - 1))) & (N - 1));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -182,6 +191,51 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// a TMA store of one box from shared memory at `src` to element
+// coordinates (innermost first), in this thread's bulk async-group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// closes this thread's bulk async-group of stores
+__device__ __forceinline__ void bulk_commit_group() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups still read their
+// shared-memory source (the source may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_group_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// waits until at most N of this thread's bulk groups are incomplete (their
+// writes done)
+template <int N>
+__device__ __forceinline__ void bulk_wait_group() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a 4-byte asynchronous copy from device to shared memory (both 4-byte
+// aligned), outside the bulk-copy engine
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+// one arrival on `bar`, made when all of this thread's earlier cp.async
+// copies have landed (counted among the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
 }
 
 // orders this thread's generic-proxy writes to any state space (shared

@@ -39,6 +39,24 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const __nv_bfloat16* 
                : "r"(addr));
 }
 
+// The same with .trans: lane l receives, of each 8x8 matrix, column l / 4
+// at rows 2 (l % 4) and 2 (l % 4) + 1. For a tile stored k-row by k-row
+// (n contiguous), matrix rows k0..k0+7 at columns n0..n0+7 give the mma B
+// fragment register of that k half: b = B[2c, 2c+1][g].
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// two matrices: lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
 // A fragment of rows [row0, row0 + 16) x k [k0, k0 + 16) from a shared
 // tile stored row-major with LD bf16 per row (k contiguous). Matrices in
 // a[] order: rows 0-7 / 8-15 at k 0-7, then rows 0-7 / 8-15 at k 8-15.

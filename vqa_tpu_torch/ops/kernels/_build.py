@@ -55,13 +55,14 @@ _ENTRY_POINTS = {
     # act, pool_kind, stream
     "decode_att_bwd": (_P,) * 8 + (_U, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # dls, qps, k, out, seed, T, B, objs, H, att_scale, thresh, act,
-    # out_kind, stream
-    "decode_att_dvp": (_P,) * 4 + (_U, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # out_kind, nb, gc, tc, stages, grid, stream
+    "decode_att_dvp": (_P,) * 4 + (_U, _I, _I, _I, _I, _F) + (_I,) * 8 + (_P,),
     # x_q, x_scale, w_nk, w_scale, bias, out, M, K, N, xs_bf16, out_bf16,
     # relu, stream
     "int8_matmul_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
-    # out_self, proj, alpha, graph, bias, out, B, D, L, is_bf16, stream
-    "gcn_chain_forward": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # out_self, proj, alpha, graph, bias, out, B, D, L, is_bf16, groups,
+    # tiles_per_group, stages, grid, stream
+    "gcn_chain_forward": (_P,) * 6 + (_I,) * 8 + (_P,),
     # v, q, wv_t, wq_t, bv, bq, wl, bl, pooled, att, B, N, Dv, H, Hq,
     # vec_bf16, stream
     "fused_attention_forward": (_P,) * 10 + (_I,) * 6 + (_P,),

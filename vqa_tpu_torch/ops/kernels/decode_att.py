@@ -31,10 +31,12 @@ same keep law.
 
 The forward kernel streams each row's qp, vp and payload by 1-D bulk copies
 through an mbarrier ring on a persistent grid, so a row's payload is in
-flight while its logits and softmax run (0.284 ms at B=4096, 0.051 ms at
+flight while its logits and softmax run (0.2794 ms at B=4096, 0.0470 ms at
 B=512: ``chip_smoke.py``, NVIDIA H100 80GB HBM3, 700 W; PERF.md). Its
 operands must start on 16-byte boundaries, and H and D stay at most
-``MAX_FWD_WIDTH``.
+``MAX_FWD_WIDTH``. The deferred reduction stages each row's qp and dl once
+in a ring of its own and gives each thread a lane group and several boxes
+(:func:`_dvp_plan`); its qps must start on a 16-byte boundary.
 
 A wrapper given CPU tensors runs the plain version (``*_reference``); given
 CUDA tensors it launches the kernel or raises.
@@ -42,7 +44,7 @@ CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -106,6 +108,13 @@ def keep_mask(seed: int, t: Union[int, Sequence[int], torch.Tensor], rows: int,
               >> shifts) & 0xFF
     keep = (bytes_ < thresh).to(torch.uint8).reshape(-1, rows, objs * H)
     return keep if steps.dim() else keep[0]
+
+
+def philox_draws(batch: int, objs: int, H: int, steps: int = 1) -> int:
+    """Philox4x32-10 calls that the masks of ``steps`` decode steps take: one
+    a (row, box, 16-lane group) a step. The forward and backward kernels
+    draw one step's masks, the deferred reduction all T steps'."""
+    return batch * objs * (H // LANES) * steps
 
 
 def _masked(x: torch.Tensor, keep: Optional[torch.Tensor], scale: float = 1.0):
@@ -300,6 +309,68 @@ def decode_att_bwd(vp2, pool2, w, att, g_attv, seed: int, t: int, *,
     return d_qp, m, dl
 
 
+# the deferred reduction's launch: 256 consumer threads a block, two blocks
+# an SM, at most 4 boxes a thread (16 f32 sums each), about 16 KB of qp a
+# ring stage, 2-4 stages within 100 KB a block
+_DVP_THREADS, _DVP_BLOCKS_PER_SM, _DVP_MAX_BOXES = 256, 2, 4
+_DVP_STAGE_TARGET, _DVP_MAX_STAGES, _DVP_BLOCK_SMEM = 16384, 4, 100 * 1024
+
+
+def _round128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def _dl_stride(objs: int, itemsize: int) -> int:
+    """Bytes of one step's dl row in a stage: the row and its offset in its
+    first 4-byte word, padded to 16."""
+    return -(-(objs * itemsize + 4) // 16) * 16
+
+
+def _dvp_items(objs: int, H: int, nb: int, gc: int) -> Tuple[int, int, int]:
+    """(box sets an item, group slices a row, box-set slices a row): the
+    kernel's block items (``dvp_shape`` in the CUDA source). A row's G = H /
+    16 groups fall into slices of ``gc``, its ``ceil(objs / nb)`` box sets
+    into slices of ``256 // gc``; an item is one of each."""
+    sc = _DVP_THREADS // gc
+    return sc, -(-(H // LANES) // gc), -(-(-(-objs // nb)) // sc)
+
+
+def _dvp_plan(batch: int, objs: int, H: int, T: int, itemsize: int,
+              sms: int) -> Tuple[int, int, int, int, int]:
+    """(nb, gc, tc, stages, grid) of the deferred-reduction kernel.
+
+    A thread owns one 16-lane group and ``nb`` boxes; a block item is one
+    batch row's slice of ``gc`` groups (all of them up to H=4096) by
+    ``256 // gc`` sets of ``nb`` boxes, so a row is
+    ``ceil(G / gc) * ceil(ceil(objs / nb) / (256 // gc))`` items. ``nb`` is
+    the one that leaves the fewest thread slots idle, the largest on a tie
+    (qp's lanes, unpacked once a step, serve more boxes). A ring stage holds
+    ``tc`` steps of the slice's qp (about 16 KB) and the row's dl; the grid
+    is two blocks an SM, at most one an item."""
+    gc = min(H // LANES, _DVP_THREADS)
+    best = None
+    for nb in range(_DVP_MAX_BOXES, 0, -1):
+        _, g_items, s_items = _dvp_items(objs, H, nb, gc)
+        slots = g_items * s_items * _DVP_THREADS * nb
+        if best is None or slots < best[0]:
+            best = (slots, nb, g_items * s_items)
+    _, nb, per_row = best
+    row_bytes = gc * LANES * itemsize
+    tc = max(1, min(max(T, 1), _DVP_STAGE_TARGET // row_bytes))
+    stage = _round128(tc * row_bytes) + _round128(tc * _dl_stride(objs, itemsize))
+    stages = max(2, min(_DVP_MAX_STAGES, _DVP_BLOCK_SMEM // stage))
+    grid = max(1, min(batch * per_row, _DVP_BLOCKS_PER_SM * sms))
+    return nb, gc, tc, stages, grid
+
+
+def _dvp_smem_bytes(objs: int, gc: int, tc: int, stages: int,
+                    itemsize: int) -> int:
+    """Dynamic shared memory of the deferred-reduction kernel for a plan."""
+    stage = (_round128(tc * gc * LANES * itemsize)
+             + _round128(tc * _dl_stride(objs, itemsize)))
+    return 128 + stages * (stage + 16)
+
+
 def decode_att_dvp(dls, qps, k, seed: int, *, objs: int, att_scale: float,
                    thresh: Optional[int], out_dtype: torch.dtype):
     """Deferred gradient of vp: ``sum_t keep_t (dl_t (x) qp_t) * (att_scale
@@ -319,8 +390,17 @@ def decode_att_dvp(dls, qps, k, seed: int, *, objs: int, att_scale: float,
         raise TypeError(f"decode_att_dvp: out_dtype {out_dtype}")
     _check("decode_att_dvp", dls=(dls, dt, dev), qps=(qps, dt, dev),
            k=(k, dt, dev))
+    if objs > 64:
+        raise ValueError(f"decode_att_dvp: objs={objs} must be at most 64")
+    if qps.data_ptr() % 16:   # the bulk copies read from 16-byte boundaries
+        raise ValueError("decode_att_dvp: qps must start on a 16-byte "
+                         "boundary")
+    thresh_arg = _thresh_arg(thresh)
     out = torch.empty((B, objs * H), dtype=out_dtype, device=dev)
+    _build.library()   # built (or raising) before the card is asked its SMs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = _dvp_plan(B, objs, H, T, dls.element_size(), sms)
     _build.launch("decode_att_dvp", "decode_att_dvp", dev, dls, qps, k, out,
                   int(seed) & _MASK32, T, B, objs, H, float(att_scale),
-                  _thresh_arg(thresh), act, _ACT[out_dtype])
+                  thresh_arg, act, _ACT[out_dtype], *plan)
     return out
