@@ -93,17 +93,20 @@ Phases, each of which raises (exit code 1) on failure:
 12. library kernels (no model path calls them, in the JAX package or the
    port): fused_multiply_attention_pool, gru_last_state and
    gru_last_state_v3 against their plain versions in bf16 at the JAX test
-   shapes, at a ragged B=1003 and at full width (B=16384), the full-width
-   ones on the serving model's weights: the attention folded from its
-   ``MultiplyAttention`` (``weight_g / ||weight_v||``), also held against
-   that module's softmax on the dense bf16 feed and the pooling over it;
-   the GRUs on its question GRU and embedded questions, v1 also against
-   gru_v2 on the same input gates, and both at H=2048; then each timed
-   against its plain version (and the attention against the unfused bf16
-   module, v1 against gru_v2 and v3 against cuDNN's ``nn.GRU``, with each
-   GRU's share of its bound and its ratio to that other route), and v1 at
-   one full wave of 64-row tiles against half as many tiles, which the
-   plan gives two blocks each;
+   shapes, at a ragged B=1003 and at full width (B=16384), the attention
+   also at 100 boxes, at 256 (one image an M tile) and at H=1040 (9
+   column tiles), each time with a second call bit-equal to the first; the
+   full-width ones on the serving model's weights: the attention folded
+   from its ``MultiplyAttention`` (``weight_g / ||weight_v||``), also held
+   against that module's softmax on the dense bf16 feed and the pooling
+   over it; the GRUs on its question GRU and embedded questions, v1 also
+   against gru_v2 on the same input gates, and both at H=2048; then each
+   timed against its plain version (and the attention against the unfused
+   bf16 module, with its share of the bound and its plan; v1 against
+   gru_v2 and v3 against cuDNN's ``nn.GRU``, with each GRU's share of its
+   bound and its ratio to that other route), and v1 at one full wave of
+   64-row tiles against half as many tiles, which the plan gives two
+   blocks each;
 13. the entry point: ``vqa_tpu_torch.main.main`` in this process, on a
    synthetic VQA-E root at full width, trains the MTL model (int8 feed,
    ``use_pallas``, bf16 over f32 masters, length buckets) for one epoch of
@@ -118,7 +121,9 @@ The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
 counts of each path, its time against its plain version and its bound,
 with the term that sets it; gru_v2's, decode_att_fwd's, decode_att_dvp's
-and gcn_chain_fused's also at B=512, as ``ms_b512`` and ``bound_ms_b512``)
+and gcn_chain_fused's also at B=512, as ``ms_b512`` and ``bound_ms_b512``,
+and the unfused bf16 attention module's time beside the fused attention's,
+as ``unfused_module_ms``)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -150,6 +155,10 @@ BEAM_K, C_LEN, DECODE_TIME_BATCH = 3, 20, 4096
 # dequant_matmul and vocab_topk_lse ran on wgmma (chip_smoke.py runs of the
 # first designs, NVIDIA H100 80GB HBM3, 700 W), logged beside this run's
 RECORDED_FORWARD_MS, RECORDED_DECODE_MS = 24.102, 150.21
+# fused_multiply_attention_pool at B=16384 as PERF.md recorded it before its
+# clustered wgmma design (the first design, mma.sync on 144-row tiles;
+# chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W)
+RECORDED_ATTENTION_MS = 15.469
 
 # Tolerances. gru_v2: the f32 state |h| < 1; kernel and plain version sum in
 # different orders, and where that flips the bf16 rounding of an h operand,
@@ -1047,11 +1056,17 @@ def main() -> int:
                 u(h, scale=0.1).to(bf16), u(h, 1, scale=h ** -0.5), u(1, scale=0.1).to(bf16))
 
     def compare_attention(args, shape):
+        """The kernel against its plain version, and a second call bit-equal
+        to the first: the logits' cluster sum runs in a fixed order."""
         pooled, att = fused_attention.fused_multiply_attention_pool(*args)
         p_pooled, p_att = fused_attention.multiply_attention_pool_reference(*args)
         for what, got, want in (("att", att, p_att), ("pooled", pooled, p_pooled)):
             compare("fused_multiply_attention_pool", got, want,
                     LIB_F32_ATOL_REL * want.abs().max().item(), 0.0, f"{shape} {what}")
+        again = fused_attention.fused_multiply_attention_pool(*args)
+        same = torch.equal(again[0], pooled) and torch.equal(again[1], att)
+        log(f"kernel fused_multiply_attention_pool {shape}: a second call bit-equal: {same}")
+        require(same, f"fused_multiply_attention_pool {shape}: two calls differ")
         return pooled, att
 
     def within(name: str, what: str, got, want, atol: float) -> None:
@@ -1095,9 +1110,12 @@ def main() -> int:
             dst.copy_(src)
     cudnn_gru.flatten_parameters()
     with torch.inference_mode():
-        # the JAX test shapes (tests/test_pallas.py) and a ragged batch
+        # the JAX test shapes (tests/test_pallas.py), a ragged batch, 100
+        # boxes (adaptive bottom-up features), the most boxes (one image an
+        # M tile) and an H of 9 column tiles (no cluster divides them)
         for shape in ((32, 12, 64, 48, 40), (16, 9, 32, 24, 24),
-                      (1003, OBJS, V_DIM, HIDDEN, HIDDEN)):
+                      (1003, OBJS, V_DIM, HIDDEN, HIDDEN), (64, 100, V_DIM, HIDDEN, HIDDEN),
+                      (5, 256, 256, HIDDEN, 64), (200, OBJS, V_DIM, 1040, HIDDEN)):
             compare_attention(lib_attention_inputs(*shape),
                               "B={} N={} Dv={} H={} Hq={}".format(*shape))
         # H=2048: the 64-row state does not fit in shared memory beside the
@@ -1132,14 +1150,27 @@ def main() -> int:
         times[name] = time_pair(lambda: fused_attention.fused_multiply_attention_pool(*lib_args),
                                 lambda: fused_attention.multiply_attention_pool_reference(
                                     *lib_args), 3)
+        # the products v @ wv and q @ wq, the gate and the pooling, from the
+        # operands' shapes
+        q_dim, hid = lib_args[4].shape
         bounds[name] = bound(nbytes(*lib_args, pooled, att), 2.0 * LIB_TIME_BATCH * (
-            OBJS * V_DIM * HIDDEN + HIDDEN * HIDDEN + OBJS * HIDDEN + OBJS * V_DIM), "bf16")
+            OBJS * V_DIM * hid + q_dim * hid + OBJS * hid + OBJS * V_DIM), "bf16")
         unfused_att_ms = time_ms(
             lambda: torch.einsum("bn,bnd->bd", att_mod(v, q)[..., 0], v), 3)
         log(f"time {name} {shape}: kernel {times[name][0]:.4f} ms, plain (f32) "
             f"{times[name][1]:.4f} ms, the unfused bf16 module (MultiplyAttention "
             f"+ the pooling einsum, cuBLAS) {unfused_att_ms:.4f} ms, bound "
-            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}); share of the bound "
+            f"{bounds[name][0] / times[name][0]:.1%}, kernel / unfused module "
+            f"{times[name][0] / unfused_att_ms:.3f}; recorded before this design "
+            f"{RECORDED_ATTENTION_MS} ms (PERF.md) [{card}]")
+        extra[name] = {"unfused_module_ms": unfused_att_ms}
+        # what the kernel reports of itself and the card, and its plan here
+        # (the CPU tests pin the plan on these numbers)
+        card_caps = fused_attention._card(dev)
+        log(f"kernel {name}: {card_caps}; plan at {shape} (images, cluster, passes, "
+            f"stages, grid): {fused_attention._plan(LIB_TIME_BATCH, OBJS, hid, card_caps)} "
+            f"[{card}]")
         del v, q, lib_args, pooled, att, mod_att
         # full width on the serving model's question GRU and embeddings
         emb = model.encoder.embed(torch.randint(0, NTOKEN, (LIB_TIME_BATCH, Q_LEN),

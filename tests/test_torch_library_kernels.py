@@ -47,10 +47,12 @@ def attention_inputs(rng, B, N, Dv, H, Hq):
             rng.standard_normal(1).astype(np.float32) * 0.1)
 
 
-@pytest.mark.parametrize("shape", [(32, 12, 64, 48, 40), (16, 9, 32, 24, 24)])
+@pytest.mark.parametrize("shape", [(32, 12, 64, 48, 40), (16, 9, 32, 24, 24),
+                                   (8, 100, 64, 48, 40)])
 def test_attention_plain_matches_pallas(rng, shape):
     """multiply_attention_pool_reference (and the wrapper on CPU tensors)
-    against JAX's kernel in interpret mode, at both JAX test shapes."""
+    against JAX's kernel in interpret mode, at both JAX test shapes and at
+    100 boxes (bottom-up features with adaptive boxes: 10-100 an image)."""
     args = attention_inputs(rng, *shape)
     want_pool, want_att = jax_fused_attention(*map(jnp.asarray, args),
                                               tile_b=8, interpret=True)
@@ -212,8 +214,8 @@ def meta_attention(B=4, N=36, Dv=64, H=32, Hq=40, vec=torch.float32):
 
 def test_library_wrappers_reject_what_the_kernels_do_not_take():
     """Off the CPU the wrappers check shapes and types before any build."""
-    with pytest.raises(ValueError, match="N=65"):
-        fused_attention.fused_multiply_attention_pool(*meta_attention(N=65))
+    with pytest.raises(ValueError, match="N=257"):
+        fused_attention.fused_multiply_attention_pool(*meta_attention(N=257))
     with pytest.raises(ValueError, match="multiples of 8"):
         fused_attention.fused_multiply_attention_pool(*meta_attention(H=20))
     with pytest.raises(ValueError, match="shapes"):
@@ -383,3 +385,135 @@ def test_gru_wrappers_refuse_before_any_launch(monkeypatch, hidden):
                                  torch.empty(hidden, gates, **META),
                                  torch.empty(gates, **META))
     assert calls == [] and _build.LAUNCHES == before
+
+
+# what fused_attention_query reports on an NVIDIA H100 80GB HBM3 (chip_smoke.py
+# phase 12 logs it): 33,312 bytes of shared memory beside the ring, 49,168 a
+# 64-deep stage of a 256-row v tile and a 128-row Wv tile with its two
+# barriers, 227 KB a block, 132 SMs
+H100 = fused_attention.Card(fixed=33312, per_stage=49168, smem_limit=232448, sms=132)
+
+
+# the attention kernel's plan: (B, N, H) -> (images a tile, cluster, passes,
+# stages, grid) on the H100. Serving shape: 7 images of 36 boxes a 256-row
+# tile, clusters of 4 blocks taking two 128-column tiles of H=1024 each, 4
+# stages, 33 clusters; the JAX test shapes fit one column tile, so one block
+# a cluster; H=1040 is 9 column tiles: no cluster of 2 or 4 divides them
+@pytest.mark.parametrize("batch, objs, hidden, want", [
+    (16384, 36, 1024, (7, 4, 2, 4, 132)),
+    (1003, 36, 1024, (7, 4, 2, 4, 132)),
+    (32, 12, 48, (21, 1, 1, 4, 2)),
+    (16, 9, 24, (28, 1, 1, 4, 1)),
+    (8, 100, 48, (2, 1, 1, 4, 4)),
+    (1003, 36, 1040, (7, 1, 9, 4, 132)),
+])
+def test_attention_plan_pinned(batch, objs, hidden, want):
+    assert fused_attention._plan(batch, objs, hidden, H100) == want
+
+
+@pytest.mark.parametrize("batch, objs, hidden, sms", [
+    (16384, 36, 1024, 132), (1003, 36, 1024, 132), (1, 36, 1024, 132),
+    (32, 12, 48, 132), (16, 9, 24, 132), (8, 100, 48, 132),
+    (1003, 36, 1040, 132), (5, 128, 2048, 132), (300, 1, 8, 132),
+    (77, 7, 520, 114), (4096, 36, 384, 78), (3, 36, 4096, 16),
+    (5, 256, 1024, 132), (9, 255, 64, 132), (40, 129, 136, 132),
+    (1000, 85, 256, 132), (64, 64, 2048, 132), (1003, 100, 1024, 132),
+    (16384, 10, 1024, 132), (2, 36, 8, 132), (7, 2, 640, 132),
+    (513, 36, 896, 132), (250, 50, 1152, 132), (16384, 36, 4096, 132),
+])
+def test_attention_plan_properties(batch, objs, hidden, sms):
+    """Every image lies in exactly one M tile and every tile in exactly one
+    cluster's walk; a tile's images fit its 256 rows; the cluster's blocks
+    cover H with no column tile wholly past it; the ring is as deep as the
+    card's shared memory allows; the grid is whole clusters, at most one
+    block an SM."""
+    card = H100._replace(sms=sms)
+    images, cluster, passes, stages, grid = fused_attention._plan(
+        batch, objs, hidden, card)
+    assert 1 <= images and images * objs <= 256
+    tiles = -(-batch // images)
+    clusters = grid // cluster
+    assert grid % cluster == 0 and 1 <= clusters <= tiles and grid <= sms
+    walked = sorted(t for c in range(clusters) for t in range(c, tiles, clusters))
+    assert walked == list(range(tiles))
+    covered = sorted(i for t in walked
+                     for i in range(t * images, min(batch, (t + 1) * images)))
+    assert covered == list(range(batch))
+    assert cluster in (1, 2, 4)
+    col_tiles = cluster * passes
+    assert (col_tiles - 1) * 128 < hidden <= col_tiles * 128
+    assert stages >= 2
+    assert card.fixed + stages * card.per_stage <= card.smem_limit \
+        < card.fixed + (stages + 1) * card.per_stage
+
+
+@pytest.mark.parametrize("dims", [dict(Dv=60), dict(H=20), dict(Hq=36),
+                                  dict(N=257), dict(N=1000)])
+def test_attention_wrapper_refuses_before_any_build(monkeypatch, tmp_path, dims):
+    """N above 256 and Dv, H or Hq not multiples of 8 raise ValueError before
+    the library is built or a launch counted."""
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="boxes|multiples of 8"):
+        fused_attention.fused_multiply_attention_pool(*meta_attention(**dims))
+    assert _build._lib is None and _build.LAUNCHES == before
+
+
+# (B, N, Dv, H, Hq, vec dtype): the JAX test shapes, 100 and 256 boxes, a
+# ragged B at the serving width, an H of 9 column tiles, the narrowest
+# widths, bf16 vectors, and B=0
+@pytest.mark.parametrize("batch, objs, v_dim, hidden, q_dim, vec", [
+    (32, 12, 64, 48, 40, torch.float32), (16, 9, 32, 24, 24, torch.float32),
+    (8, 100, 64, 48, 40, torch.float32), (3, 256, 2048, 1024, 1024, torch.float32),
+    (1003, 36, 2048, 1024, 1024, torch.bfloat16), (200, 36, 2048, 1040, 1024, torch.float32),
+    (5, 1, 8, 8, 8, torch.bfloat16), (0, 36, 64, 48, 40, torch.float32),
+])
+def test_attention_shapes_it_takes_reach_the_kernel(monkeypatch, batch, objs,
+                                                    v_dim, hidden, q_dim, vec):
+    """Shapes the kernel takes pass every check and reach one launch (one
+    count for its two kernels) with the weights K-major ([H, Dv], [H, Hq]),
+    a scratch of (B + 2) Hp f32 for qp and the f32 bv and wl (Hp: H in whole
+    128-column tiles), the outputs, the vectors' bf16 bits and the plan
+    made from what the kernel reports of itself and the card."""
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda kernel, entry, device, *args:
+                        calls.append((kernel, entry, args)))
+    monkeypatch.setattr(fused_attention, "_card", lambda device: H100)
+    args = meta_attention(batch, objs, v_dim, hidden, q_dim, vec)
+    pooled, att = fused_attention.fused_multiply_attention_pool(*args)
+    assert pooled.shape == (batch, v_dim) and att.shape == (batch, objs)
+    assert pooled.dtype == att.dtype == torch.float32
+    [(kernel, entry, got)] = calls
+    assert (kernel, entry) == ("fused_multiply_attention_pool",
+                               "fused_attention_forward")
+    v, q, wv_t, wq_t, bv, bq, wl, bl, qp, out_p, out_a = got[:11]
+    assert v is args[0] and q is args[1]
+    assert wv_t.shape == (hidden, v_dim) and wv_t.is_contiguous()
+    assert wq_t.shape == (hidden, q_dim) and wq_t.is_contiguous()
+    assert (bv, bq, wl, bl) == (args[3], args[5], args[6], args[7])
+    h_pad = -(-hidden // 128) * 128
+    assert qp.shape == ((batch + 2) * h_pad,) and qp.dtype == torch.float32
+    assert out_p is pooled and out_a is att
+    bits = 15 if vec == torch.bfloat16 else 0
+    assert got[11:] == (batch, objs, v_dim, hidden, q_dim, bits,
+                        *fused_attention._plan(batch, objs, hidden, H100))
+
+
+@pytest.mark.parametrize("batch, objs, hidden", [(8, 100, 48), (3, 256, 1024),
+                                                 (200, 36, 1040)])
+def test_attention_shapes_it_takes_reach_the_build(monkeypatch, tmp_path,
+                                                   batch, objs, hidden):
+    """Without nvcc those shapes reach the build, which raises; no launch is
+    counted."""
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(_build.KernelBuildError):
+        fused_attention.fused_multiply_attention_pool(
+            *meta_attention(batch, objs, 64, hidden, 40))
+    assert _build.LAUNCHES == before

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma
 // with TMA loads into mbarrier rings (int8_matmul.cu, gru.cu, feed_gemm.cu,
-// vocab_topk.cu), and by decode_att.cu's bulk-copy ring.
+// vocab_topk.cu, fused_attention.cu), and by decode_att.cu's bulk-copy ring.
 //
 // - TMA tensor maps, encoded on the host by cuTensorMapEncodeTiled, which is
 //   looked up at run time by cudaGetDriverEntryPoint(ByVersion), so the
@@ -13,8 +13,11 @@
 //   the wait on a phase parity; 1-D bulk copies (no tensor map); TMA stores
 //   of a box and the waits on their bulk groups (gcn_chain.cu).
 // - clusters: rank and id, the cluster-wide barrier, arrivals on a peer
-//   block's mbarrier and bulk copies into its shared memory (mapa), and the
-//   wait that acquires what peers released.
+//   block's mbarrier, bulk copies into its shared memory and loads from it
+//   (mapa), the wait that acquires what peers released, and TMA loads
+//   multicast into several blocks of the cluster at once (fused_attention.cu:
+//   each block loads a slice of a tile that all of them use, so the tile
+//   leaves L2 once for the cluster).
 // - wgmma: the shared-memory matrix descriptor of a K-major tile in that
 //   128-byte swizzle, fence / commit / wait, and the instructions at the
 //   widths the kernels use (bf16 -> f32 m64n{32,64,96,128,256}k16, s8 -> s32
@@ -151,6 +154,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A TMA load of one box multicast to the blocks of the cluster whose bits
+// are set in `mask` (bit r: cluster rank r): the box lands at `dst`'s offset
+// in each of their shared memories and completes its bytes on the barrier
+// at `bar`'s offset in each of them.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -283,6 +300,18 @@ __device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank)
       : "memory");
 }
 
+// one arrival on the barrier at `bar`'s offset in cluster block `rank`,
+// with no ordering of this thread's memory accesses at cluster scope: for
+// handing back a buffer whose readers (wgmma, waited for) are done
+__device__ __forceinline__ void mbar_arrive_remote_relaxed(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
 // waits until the phase of parity `parity` has completed, acquiring at
 // cluster scope what the arrivals released (writes of peer blocks)
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
@@ -295,6 +324,20 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// the f32 at `p`'s offset in the shared memory of cluster block `rank`
+// (which may be this one)
+__device__ __forceinline__ float ld_shared_cluster_f32(const float* p, uint32_t rank) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [ra];\n}\n"
+      : "=f"(v)
+      : "r"(smem_addr(p)), "r"(rank)
+      : "memory");
+  return v;
 }
 
 // a bulk copy of `bytes` (a multiple of 16) from this block's shared memory

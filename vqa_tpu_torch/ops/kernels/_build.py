@@ -63,9 +63,12 @@ _ENTRY_POINTS = {
     # out_self, proj, alpha, graph, bias, out, B, D, L, is_bf16, groups,
     # tiles_per_group, stages, grid, stream
     "gcn_chain_forward": (_P,) * 6 + (_I,) * 8 + (_P,),
-    # v, q, wv_t, wq_t, bv, bq, wl, bl, pooled, att, B, N, Dv, H, Hq,
-    # vec_bf16, stream
-    "fused_attention_forward": (_P,) * 10 + (_I,) * 6 + (_P,),
+    # v, q, wv_t, wq_t, bv, bq, wl, bl, qp (scratch), pooled, att, B, N,
+    # Dv, H, Hq, vec_bf16, images, cluster, passes, stages, grid, stream
+    # (two launches, one count)
+    "fused_attention_forward": (_P,) * 11 + (_I,) * 11 + (_P,),
+    # &fixed, &per_stage, &smem_limit, &sms (no stream, launches nothing)
+    "fused_attention_query": (_P,) * 4,
     # xi, w, bh, out, h16 [2, B, H] or null, B, T, H, cluster, stream
     "gru_last_state_forward": (_P,) * 5 + (_I,) * 4 + (_P,),
     # emb [B, T, E8], wi [3H, E8], bi, w, bh, out, h16, B, T, H, E, E8,

@@ -1,7 +1,7 @@
-"""Top-down MultiplyAttention and the attention-weighted pooling in one pass.
+"""Top-down MultiplyAttention and the attention-weighted pooling in one call.
 
 Counterpart of ``vqa_tpu/ops/pallas/fused_attention.py``
-``fused_multiply_attention_pool``; the CUDA kernel is
+``fused_multiply_attention_pool``; the CUDA kernels are
 ``vqa_tpu_torch/csrc/fused_attention.cu``:
 
     vp     = relu(v @ wv + bv)            [B, N, H]
@@ -15,18 +15,78 @@ weight normalization into the weights (``g / ||v||`` times ``v``, transposed
 to [in, out]), as for the TPU kernel. Like it, this is a library kernel: no
 model path of the port calls it. Rounding points are the TPU kernel's: the
 products accumulate in f32, and the biases, the gate, the logits, the
-softmax and the pooling are f32.
+softmax and the pooling are f32; qp is never rounded below f32.
+
+One call is two launches, counted as one: a small kernel writes qp [B, H]
+(and f32 copies of bv and wl) to a scratch tensor, then a persistent kernel
+on wgmma, in thread block clusters along H that share each v stage by TMA
+multicast, computes the rest over M tiles of whole images. :func:`_plan`
+sizes it from what the kernel reports of its shared memory and of the card
+(``fused_attention_query``). ``chip_smoke.py`` phase 12 times it at the
+serving shape beside the unfused bf16 module and its bound (PERF.md).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from vqa_tpu_torch.ops.kernels import _build
 
-# the kernel holds whole images in a tile of at most 144 rows, one warp a
-# softmax of two rows a lane
-_MAX_OBJS = 64
+# the kernel's H columns of a block's pass and rows of an M tile (its
+# kTileN and kTileM; its entry refuses a plan that disagrees), and the
+# cluster sizes it takes, largest first: at H=1024 clusters of 4 blocks
+# taking two column tiles each were faster than 8 taking one (PERF.md)
+_TILE_N = 128
+_TILE_M = 256
+_CLUSTERS = (4, 2, 1)
+# the most boxes an image may have: one image fills an M tile
+_MAX_OBJS = _TILE_M
+
+
+class Card(NamedTuple):
+    """What ``fused_attention_query`` reports: the attention kernel's
+    dynamic shared memory, ``fixed`` bytes plus ``per_stage`` bytes a ring
+    stage, the most a block may take on the card, and its SM count."""
+    fixed: int
+    per_stage: int
+    smem_limit: int
+    sms: int
+
+
+_CARDS: Dict[int, Card] = {}
+
+
+def _card(device: torch.device) -> Card:
+    """The kernel's and the card's answers for ``device``, asked once the
+    kernel library is built (or has raised)."""
+    key = device.index or 0
+    if key not in _CARDS:
+        vals = [ctypes.c_int(0) for _ in Card._fields]
+        _build.query("fused_multiply_attention_pool", "fused_attention_query",
+                     device, *(ctypes.addressof(v) for v in vals))
+        _CARDS[key] = Card(*(v.value for v in vals))
+    return _CARDS[key]
+
+
+def _plan(batch: int, objs: int, hidden: int,
+          card: Card) -> Tuple[int, int, int, int, int]:
+    """(images, cluster, passes, stages, grid) of the attention kernel. An
+    M tile of 256 rows holds floor(256 / N) whole images. H falls into
+    128-column tiles; a cluster is the largest of 4, 2, 1 blocks that
+    divides their count, and each block takes ``passes`` of them. The ring
+    is as deep as the card's shared memory allows. One cluster an M tile,
+    at most one block an SM; the kernel cuts the grid further to the
+    clusters the card holds at once."""
+    images = _TILE_M // objs
+    col_tiles = -(-hidden // _TILE_N)
+    cluster = next(c for c in _CLUSTERS if col_tiles % c == 0)
+    stages = (card.smem_limit - card.fixed) // card.per_stage
+    tiles = -(-batch // images)
+    return (images, cluster, col_tiles // cluster, stages,
+            min(tiles, card.sms // cluster) * cluster)
 
 
 def multiply_attention_pool_reference(v: torch.Tensor, q: torch.Tensor,
@@ -53,9 +113,9 @@ def fused_multiply_attention_pool(v: torch.Tensor, q: torch.Tensor,
     """(pooled [B, Dv] f32, att [B, N] f32) of the attention above.
 
     CPU tensors run :func:`multiply_attention_pool_reference`. CUDA tensors
-    launch the kernel, which takes bf16 ``v``, ``q``, ``wv`` and ``wq``,
-    ``bv``, ``bq``, ``wl`` and ``bl`` in f32 or bf16, N up to 64, and Dv, H
-    and Hq multiples of 8; anything else raises. The kernel reads the two
+    launch the kernels, which take bf16 ``v``, ``q``, ``wv`` and ``wq``,
+    ``bv``, ``bq``, ``wl`` and ``bl`` in f32 or bf16, N up to 256, and Dv,
+    H and Hq multiples of 8; anything else raises. The kernels read the two
     weights as [H, in] (torch's Linear layout): pass ``weight.t()`` and no
     copy is made.
     """
@@ -88,12 +148,17 @@ def fused_multiply_attention_pool(v: torch.Tensor, q: torch.Tensor,
                             f"{t.dtype}")
         _build.check_operand(name, arg, t, t.dtype, v.device)
         vec_bf16 |= (t.dtype == torch.bfloat16) << bit
-    for arg, t in (("v", v), ("q", q)):
+    for arg, t in (("v", v), ("q", q), ("wv", wv_t), ("wq", wq_t)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    plan = _plan(batch, objs, hidden, _card(v.device))
+    # qp [B, Hp] and f32 bv, wl [Hp], Hp = H in whole 128-column tiles
+    h_pad = -(-hidden // _TILE_N) * _TILE_N
+    qp = torch.empty(((batch + 2) * h_pad,), dtype=torch.float32,
+                     device=v.device)
     pooled = torch.empty((batch, v_dim), dtype=torch.float32, device=v.device)
     att = torch.empty((batch, objs), dtype=torch.float32, device=v.device)
     _build.launch(name, "fused_attention_forward", v.device, v, q, wv_t, wq_t,
-                  bv, bq, wl, bl, pooled, att, batch, objs, v_dim, hidden,
-                  q_dim, vec_bf16)
+                  bv, bq, wl, bl, qp, pooled, att, batch, objs, v_dim, hidden,
+                  q_dim, vec_bf16, *plan)
     return pooled, att

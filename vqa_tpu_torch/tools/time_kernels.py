@@ -15,7 +15,10 @@ on the same xi at B = 512, 4096, 8192 and 16384 (T=10, H=1024, bf16), and
 the int8 payload, dropout 0.2), ``gcn_chain_fused`` at B = 512 and 8192
 (36 boxes, D=2048, 12 spatial labels, bf16) and ``decode_att_dvp`` at B =
 512 and 4096 (T=19, 36 boxes, H=1024, bf16, dropout 0.2, and again
-without dropout, which leaves out the Philox draws), each by CUDA
+without dropout, which leaves out the Philox draws) and
+``fused_multiply_attention_pool`` at B = 16384 (36 boxes, Dv=2048,
+H=Hq=1024, bf16, f32 vectors) and ``dequant_matmul`` at the B=16384
+forward's v-projection (M = 16384 x 36, K=2048, N=1024), each by CUDA
 events over ``--iters`` calls after a warm-up, in the order kernel, kernel
 (two means, both printed). ``--only`` times the named kernels alone.
 """
@@ -34,8 +37,9 @@ GRU_BATCHES = (512, 4096, 8192, 16384)
 ATT_BATCHES = (512, 4096)
 CHAIN_BATCHES = (512, 8192)
 DVP_BATCHES, DVP_STEPS = (512, 4096), 19
+FORWARD_BATCHES = (16384,)   # the B=16384 forward's batch
 KERNELS = ("gru_v2", "gru_last_state", "decode_att_fwd", "gcn_chain_fused",
-           "decode_att_dvp")
+           "decode_att_dvp", "fused_multiply_attention_pool", "dequant_matmul")
 T_LEN, HIDDEN, OBJS, V_DIM, LABELS = 10, 1024, 36, 2048, 12
 ATT_THRESH, ATT_SEED, ATT_STEP = 205, 0x5EED1234, 7
 
@@ -65,7 +69,8 @@ def main() -> int:
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
-    from vqa_tpu_torch.ops.kernels import decode_att, gcn_chain, gru, gru_v2
+    from vqa_tpu_torch.ops.kernels import (
+        decode_att, feed_gemm, fused_attention, gcn_chain, gru, gru_v2)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -130,6 +135,34 @@ def main() -> int:
             emit(kernel="gcn_chain_fused", B=batch, N=OBJS, D=V_DIM, labels=LABELS,
                  regime="bf16", ms=ms)
             del chain
+        name = "fused_multiply_attention_pool"
+        for batch in FORWARD_BATCHES if name in args.only else ():
+            def lin(n_in, *shape):   # a Linear's init for n_in inputs
+                return ((torch.rand(*shape, device=dev, generator=gen) * 2 - 1)
+                        * n_in ** -0.5)
+            # the weights as the wrapper takes them, weight.t() ([in, out])
+            pool = (torch.randn(batch, OBJS, V_DIM, device=dev, generator=gen).to(bf16),
+                    (torch.rand(batch, HIDDEN, device=dev, generator=gen) * 2 - 1).to(bf16),
+                    lin(V_DIM, HIDDEN, V_DIM).to(bf16).t(), lin(V_DIM, HIDDEN),
+                    lin(HIDDEN, HIDDEN, HIDDEN).to(bf16).t(), lin(HIDDEN, HIDDEN),
+                    lin(HIDDEN, 1, HIDDEN).t(), lin(HIDDEN, 1))
+            ms = [time_ms(lambda: fused_attention.fused_multiply_attention_pool(*pool),
+                          args.iters) for _ in range(2)]
+            emit(kernel=name, B=batch, N=OBJS, Dv=V_DIM, H=HIDDEN, Hq=HIDDEN,
+                 regime="bf16", ms=ms)
+            del pool
+        for batch in FORWARD_BATCHES if "dequant_matmul" in args.only else ():
+            rows = batch * OBJS
+            x_q = torch.randint(-127, 128, (rows, V_DIM), device=dev, generator=gen,
+                                dtype=torch.int8)
+            scale = (torch.rand(rows, device=dev, generator=gen) * 0.02 + 0.02).to(bf16)
+            w = (((torch.rand(HIDDEN, V_DIM, device=dev, generator=gen) * 2 - 1)
+                  * V_DIM ** -0.5).to(bf16).t())
+            ms = [time_ms(lambda: feed_gemm.dequant_matmul(x_q, scale, w), args.iters)
+                  for _ in range(2)]
+            emit(kernel="dequant_matmul", M=rows, K=V_DIM, N=HIDDEN, regime="int8 feed, bf16",
+                 ms=ms)
+            del x_q, scale, w
     return 0
 
 
