@@ -35,7 +35,10 @@ Phases, each of which raises (exit code 1) on failure:
    dequant_matmul at the path's shape and the ragged edges of its tiling
    (N=1000, M=100, K=64 and 80); vocab_topk_lse at R=12288 with k = 1, 3
    and 8, and at R=3001, R=8 and V=1000 with an exact tie planted across
-   tiles and vocabulary splits, which must go to the lower index;
+   tiles and vocabulary splits, which must go to the lower index; and at
+   every one of these shapes (and phase 12's) the kernel module's
+   ``supports`` must hold, so that no shape gate moves a main path off its
+   kernel;
 4. serve: the full-width Up-Down model (bf16, ``use_pallas=True``, weights
    from a seeded generator) answers a few batches of the int8 feed made by
    the port's data layer (``vqa_tpu_torch.data``), through
@@ -67,6 +70,11 @@ Phases, each of which raises (exit code 1) on failure:
 8. train, kernels against plain versions: the gradients of one step with the
    kernels and with every kernel swapped for its plain version (the same
    Philox masks), in f32 and then in bf16, within stated tolerances;
+8b. widths the kernels refuse run on the plain versions: the Up-Down
+   serving model at hidden 1000 answers one request with gru_v2 launched
+   no time (dequant_matmul and pool_int8 still launch) and its logits held
+   against plain versions, and one MTL step with a decoder of width 500
+   trains with no decode-attention launch;
 9. train timing (for information): decode_att_fwd and decode_att_dvp at
    the path's B=512, each decode-attention kernel and its plain version at
    B=4096, each with its share of the bound (bytes, products or the issue
@@ -108,19 +116,38 @@ Phases, each of which raises (exit code 1) on failure:
    64-row tiles against half as many tiles, which the plan gives two
    blocks each;
 13. the entry point: ``vqa_tpu_torch.main.main`` in this process, on a
-   synthetic VQA-E root at full width, trains the MTL model (int8 feed,
-   ``use_pallas``, bf16 over f32 masters, length buckets) for one epoch of
-   a few B=512 steps and validates (decode_att_fwd/_bwd/_dvp must launch),
+   synthetic VQA-E root at full width, trains CONFIGS.md config 3 as
+   written (the ``base-cap`` head, the BUTD decoder, ``use_mtl``; int8
+   feed, ``use_pallas``, bf16 over f32 masters, length buckets) with a
+   frozen GloVe table from a 300-d file the phase writes from a seed (the
+   table must be on the card and absent from ``epoch_0.ckpt``) for one
+   epoch of a few B=512 steps and validates (decode_att_fwd/_bwd/_dvp must
+   launch),
    resumes from ``epoch_0.ckpt`` for a second epoch (the restored step and
    Adamax moments must equal the saved ones), validates in ``--mode val``
    (one score per val question) and beam-decodes in bf16 (vocab_topk_lse,
    gru_v2 and dequant_matmul must launch; one caption per val question),
-   with each mode's wall time and the train samples/s.
+   with each mode's wall time and the train samples/s;
+14. ReGAT training and GCN-LSTM: config 5's model (spatial corr-GCN, one
+   layer, bf16 over f32 masters, ``use_pallas``) trains a few Loader steps
+   of B=512 with spatial graphs (finite losses; one batch trained again
+   and again lowers its loss); GCN-LSTM (the relation encoder with the BUTD
+   decoder, ``use_mtl``, dropout 0.5 / 0.2) trains a few such steps
+   (decode_att_fwd/_bwd once per decoder step, _dvp once per step), one
+   step's gradients with the kernels held against plain versions as in
+   phase 8 (the GCN's projections included), and beam-decodes a ReGAT
+   request in bf16 (gcn_chain_fused, gru_v2 and vocab_topk_lse must
+   launch; best beams compared with plain versions); both steps timed at
+   B=4096 with their peak memory; then ``vqa_tpu_torch.main.main`` on
+   config 5's flags trains one epoch and validates in ``--mode val``
+   (gcn_chain_fused must launch), with each mode's wall time. Each
+   phase's wall time is logged, and the total.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
 counts of each path, its time against its plain version and its bound,
-with the term that sets it; gru_v2's, decode_att_fwd's, decode_att_dvp's
+with the term that sets it (the paths of phases 8b and 14 included);
+gru_v2's, decode_att_fwd's, decode_att_dvp's
 and gcn_chain_fused's also at B=512, as ``ms_b512`` and ``bound_ms_b512``,
 and the unfused bf16 attention module's time beside the fused attention's,
 as ``unfused_module_ms``)
@@ -250,8 +277,21 @@ LIB_F32_ATOL_REL = 1e-4
 MODULE_ATT_ATOL, MODULE_POOL_ATOL_REL = 5e-3, 1e-2
 LIB_TIME_BATCH = 16384
 # the entry point's synthetic VQA-E root and run: train questions over
-# images, val questions, steps a training epoch
-CLI_IMAGES, CLI_TRAIN_Q, CLI_VAL_Q, CLI_STEPS = 192, 2048, 1024, 4
+# images, val questions, steps a training epoch (depth cut from 2048 /
+# 1024 questions and 4 steps, so that the whole run, phase 14 included,
+# stays within a quarter of the wall time it took without phase 14)
+CLI_IMAGES, CLI_TRAIN_Q, CLI_VAL_Q, CLI_STEPS = 96, 1024, 512, 2
+# CONFIGS.md config 5 (ReGAT) and GCN-LSTM (the relation encoder with the
+# BUTD decoder, use_mtl) trained at full width: Loader batches of B=512
+# with spatial graphs, timed at B=4096; the parameters whose gradients are
+# held against plain versions (phase 8's, and the GCN's projections and
+# label bias, which the caption scan's gradient of v reaches); the entry
+# point's config-5 root (train questions over images, val questions)
+LSTM_DIMS = dict(REGAT_DIMS, decoder_type="butd", decoder_hidden_dim=HIDDEN, c_len=C_LEN,
+                 use_mtl=True)   # dropout 0.5 / 0.2, the defaults
+LSTM_GRAD_PREFIXES = GRAD_PREFIXES + ("encoder.spatial_encoder.conv0.w",
+                                      "encoder.spatial_encoder.conv0.label_bias")
+REGAT_CLI_IMAGES, REGAT_CLI_TRAIN_Q, REGAT_CLI_VAL_Q = 64, 1024, 512
 
 # the card's peaks for the bound of each kernel: HBM3 bytes per ms, dense
 # bf16 and int8 tensor-core and f32 (non-tensor) operations per ms
@@ -336,6 +376,19 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_PHASES = []
+
+
+def phase(name: str) -> None:
+    """Start phase ``name``: log the wall time of the one before it (host
+    clock, after a synchronise), and keep it for the summary."""
+    torch.cuda.synchronize()
+    now = time.monotonic()
+    if _PHASES:
+        log(f"phase {_PHASES[-1][0]}: {now - _PHASES[-1][1]:.1f} s")
+    _PHASES.append((name, now))
+
+
 def time_ms(fn, iters: int) -> float:
     """Mean device time of one call of ``fn`` over ``iters`` calls, by CUDA
     events, after one warm-up call."""
@@ -381,6 +434,17 @@ def gru_ops(batch: int, t_len: int, hidden: int, e_dim: int = 0) -> float:
     [E, 3H] every step (when done inside, e_dim > 0) and the recurrent
     product [B, H] x [H, 3H] on all but the first, whose state is zero."""
     return 2.0 * batch * 3 * hidden * (t_len * e_dim + (t_len - 1) * hidden)
+
+
+def write_glove(path: str, words, dim: int, seed: int) -> None:
+    """A GloVe-format text file, one ``word v_1 ... v_dim`` line a word in
+    the order given, values k / 64 for k drawn in [-128, 128) from ``seed``,
+    written with six decimals as GloVe's files are."""
+    codes = np.random.default_rng(seed).integers(0, 256, (len(words), dim))
+    text = [f"{(c - 128) / 64:.6f}" for c in range(256)]
+    with open(path, "w") as f:
+        for word, row in zip(words, codes.tolist()):
+            f.write(word + " " + " ".join([text[c] for c in row]) + "\n")
 
 
 def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool,
@@ -459,6 +523,7 @@ def main() -> int:
                              f"B={TRAIN_TIME_BATCH} training step")
     args = parser.parse_args()
     # -- 1. device ---------------------------------------------------------
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -492,6 +557,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # -- 2. build ----------------------------------------------------------
+    phase("2 build")
     t0 = time.monotonic()
     lib_path = _build.build()
     _build.library()
@@ -500,6 +566,13 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     max_err = {}
+    gates = {}
+
+    def gate(name: str, holds: bool, shape: str) -> None:
+        """A main-path shape that the kernel's ``supports`` must take: a gate
+        that refused it would quietly move the path off its kernel."""
+        require(holds, f"{name}: supports() refuses the main-path shape {shape}")
+        gates[name] = gates.get(name, 0) + 1
     kernel_modules = (gru_v2, feed_gemm, lazyv_pool, vocab_topk, decode_att,
                       int8_matmul, gcn_chain)
 
@@ -547,6 +620,7 @@ def main() -> int:
         p_vals, p_idx, p_lse = vocab_topk.vocab_topk_lse_reference(h, w, b, k)
         logits = torch.matmul(h.float(), w.float().t()) + b.float()
         shape = f"R={rows} H={HIDDEN} V={vocab} k={k}{' ties' if ties else ''}"
+        gate("vocab_topk_lse", vocab_topk.supports(rows, HIDDEN, vocab, k, h.dtype), shape)
         compare("vocab_topk_lse", vals, p_vals, VOCAB_ATOL, VOCAB_RTOL, shape + " vals")
         compare("vocab_topk_lse", lse, p_lse, VOCAB_ATOL, VOCAB_RTOL, shape + " lse")
         tol = VOCAB_ATOL + VOCAB_RTOL * logits.abs().amax(dim=1)
@@ -610,6 +684,8 @@ def main() -> int:
                           else (ATT_BF16_RTOL, ATT_BF16_ATOL_REL))
         scale = ATT_SCALE if thresh else 1.0
         shape = f"B={batch} {regime} " + (f"thresh={thresh}" if thresh else "no dropout")
+        gate("decode_att", decode_att.supports(OBJS, HIDDEN, V_DIM, qp.dtype, pool.dtype),
+             shape)
 
         def check(name, got, want, what):
             compare(name, got, want, atol_rel * want.float().abs().max().item(), rtol,
@@ -651,6 +727,8 @@ def main() -> int:
         qps = torch.rand(steps, batch, hidden, device=dev, generator=gen).to(dtype)
         kw = dict(objs=objs, att_scale=ATT_SCALE if thresh else 1.0, thresh=thresh,
                   out_dtype=dtype)
+        gate("decode_att", decode_att.supports(objs, hidden, V_DIM, dtype, dtype),
+             f"objs={objs} H={hidden} {dtype}")
         want = decode_att.decode_att_dvp_reference(dls, qps, k, ATT_SEED, **kw)
         compare("decode_att_dvp", decode_att.decode_att_dvp(dls, qps, k, ATT_SEED, **kw), want,
                 atol_rel * want.float().abs().max().item(), rtol,
@@ -675,6 +753,9 @@ def main() -> int:
         x_q, xs, w_q, w_scale, b = int8_inputs(rows, n, xs_dtype, with_bias, k)
         b = b.to(out_dtype) if b is not None else None
         kw = dict(bias=b, relu=relu, out_dtype=out_dtype)
+        gate("int8_matmul", int8_matmul.supports_3d(batch, OBJS, k, n, xs_dtype, out_dtype)
+             if batch else int8_matmul.supports(rows, k, n, xs_dtype, out_dtype),
+             f"B={batch} M={rows} K={k} N={n}")
         if batch:
             name = "int8_matmul_dequant_3d"
             args = (x_q.view(batch, OBJS, k), xs.view(batch, OBJS), w_q, w_scale)
@@ -708,6 +789,7 @@ def main() -> int:
         return out_self, proj, alpha, graph, bias
 
     # -- 3. kernels against their plain versions ---------------------------
+    phase("3 kernels")
     with torch.inference_mode():
         # the MTL training batch of 4096 and a ragged batch, in every regime
         # the decode scan feeds the kernels
@@ -740,6 +822,7 @@ def main() -> int:
                                      (SERVE_BATCH, 2048),
                                      *((b, HIDDEN) for b in reach.values() if b)}):
             xi, wh, bh = gru_inputs(batch, hidden)
+            gate("gru_v2", gru_v2.supports(Q_LEN, hidden, xi.dtype), f"B={batch} H={hidden}")
             cluster, h16 = gru_v2.launch_plan(dev, batch, hidden, False)
             clusters_run.add((cluster, hidden))
             compare("gru_v2", gru_v2.gru_last_state_v2(xi, wh, bh),
@@ -759,11 +842,13 @@ def main() -> int:
                            (3001, V_DIM, 1000), (100, V_DIM, HIDDEN), (3001, 64, HIDDEN),
                            (3001, 80, 1000)):
             x_q, scale, w = gemm_inputs(rows, k, n)
+            gate("dequant_matmul", feed_gemm.supports(rows, k, n, w.dtype), f"M={rows} K={k} N={n}")
             compare("dequant_matmul", feed_gemm.dequant_matmul(x_q, scale, w),
                     feed_gemm.dequant_matmul_reference(x_q, scale, w),
                     BF16_ATOL, BF16_RTOL, f"M={rows} K={k} N={n}")
         for batch in (1024, 1003):
             w, x_q = pool_inputs(batch)
+            gate("pool_int8", lazyv_pool.supports(*x_q.shape, w.dtype), f"B={batch}")
             compare("pool_int8", lazyv_pool.pool_int8(w, x_q),
                     lazyv_pool.pool_int8_reference(w, x_q),
                     BF16_ATOL, BF16_RTOL, f"B={batch} N={OBJS} D={V_DIM}")
@@ -805,13 +890,18 @@ def main() -> int:
                 rtol, atol_rel = ((GCN_BF16_RTOL, GCN_BF16_ATOL_REL) if dtype == bf16
                                   else (GCN_F32_RTOL, GCN_F32_ATOL_REL))
                 chain = gcn_inputs(batch, dtype, d)
+                gate("gcn_chain_fused", gcn_chain.supports(batch, OBJS, d, 12, dtype),
+                     f"B={batch} D={d} {dtype}")
                 want = gcn_chain.gcn_chain_reference(*chain)
                 compare("gcn_chain_fused", gcn_chain.gcn_chain_fused(*chain), want,
                         atol_rel * want.float().abs().max().item(), rtol,
                         f"B={batch} N={OBJS} D={d} {dtype}")
                 del chain, want
+    log(f"gates: each kernel's supports() takes every main-path shape phase 3 "
+        f"checked (shapes by kernel: {gates})")
 
     # -- 4. serve a few requests through the port's main path --------------
+    phase("4 serve")
     dims = dict(encoder_type="base", predictor_type="base", decoder_type="none",
                 ntoken=NTOKEN, v_dim=V_DIM, embed_dim=EMBED, hidden_dim=HIDDEN,
                 ans_dim=ANS, dropout=0.2, att_type="new")
@@ -873,6 +963,7 @@ def main() -> int:
         require(rel <= LOGIT_REL_TOL, "logits disagree with the plain versions")
 
     # -- 5. decode the same requests into captions -------------------------
+    phase("5 decode")
     dec_dims = dict(encoder_type="base", predictor_type="none",
                     decoder_type="butd", ntoken=NTOKEN, v_dim=V_DIM,
                     embed_dim=EMBED, hidden_dim=HIDDEN,
@@ -920,6 +1011,7 @@ def main() -> int:
                 f"best beams agree {agree_all:.4f} < {BEAM_AGREE_ALL}")
 
     # -- 6. timing ----------------------------------------------------------
+    phase("6 timing")
     # times, bounds, and the one PyTorch call timed beside a kernel
     # times, bounds, and the one PyTorch call timed beside a kernel; extra
     # keys of a kernel's entry (its time at the batch the paths launch it at)
@@ -1043,6 +1135,7 @@ def main() -> int:
             profile_run("decode", lambda: beam(batch), C_LEN - 1)
 
     # -- 12. the library kernels against their plain versions ---------------
+    phase("12 library kernels")
     # (run here, while the serving model whose weights they take is alive)
 
     def lib_attention_inputs(batch, n, dv, h, hq):
@@ -1058,6 +1151,9 @@ def main() -> int:
     def compare_attention(args, shape):
         """The kernel against its plain version, and a second call bit-equal
         to the first: the logits' cluster sum runs in a fixed order."""
+        v, q, wv, _, wq = args[:5]
+        gate("fused_multiply_attention_pool", fused_attention.supports(
+            *v.shape, wv.shape[1], wq.shape[0], v.dtype), shape)
         pooled, att = fused_attention.fused_multiply_attention_pool(*args)
         p_pooled, p_att = fused_attention.multiply_attention_pool_reference(*args)
         for what, got, want in (("att", att, p_att), ("pooled", pooled, p_pooled)):
@@ -1090,6 +1186,8 @@ def main() -> int:
         """v1 on the v2 route's bf16 input gates, against its plain version
         and against gru_v2; v3 on the embeddings against its plain version."""
         xi = (torch.matmul(emb, wi) + bi).to(bf16)
+        for name, module in (("gru_last_state", gru), ("gru_last_state_v3", gru_v3)):
+            gate(name, module.supports(emb.shape[1], wh.shape[0], bf16), shape)
         v1 = gru.gru_last_state(xi, wh, bh)
         compare("gru_last_state", v1, gru.gru_last_state_reference(xi, wh, bh), GRU_ATOL,
                 0.0, shape)
@@ -1222,6 +1320,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 7. train the full-width MTL model on Loader batches ----------------
+    phase("7 train")
     mtl_dims = dict(encoder_type="base", predictor_type="base", decoder_type="butd",
                     ntoken=NTOKEN, v_dim=V_DIM, embed_dim=EMBED, hidden_dim=HIDDEN,
                     decoder_hidden_dim=HIDDEN, ans_dim=ANS, c_len=C_LEN,
@@ -1277,38 +1376,93 @@ def main() -> int:
             "the repeated batch's loss did not fall")
 
     # -- 8. one step's gradients: kernels against plain versions ------------
-    def step_grads(dtype):
-        loss = backward_step(mtl, train_batches[1], RUN_SEED, 0, dtype)["loss"].item()
-        return loss, {n: p.grad.detach().clone() for n, p in mtl.named_parameters()
-                      if n.startswith(GRAD_PREFIXES)}
+    phase("8 train gradients")
 
-    grad_agreement = {}
-    for dtype, tol in ((None, GRAD_F32_TOL), (bf16, GRAD_BF16_TOL)):
-        label = "bf16" if dtype is bf16 else "f32"
+    def grads_against_plain(model, batch, prefixes, what: str) -> None:
+        """One training step's loss and gradients (of the parameters under
+        ``prefixes``) with the kernels and with every kernel swapped for its
+        plain version, the same Philox masks, in f32 and then in bf16."""
+        def step_grads(dtype):
+            loss = backward_step(model, batch, RUN_SEED, 0, dtype)["loss"].item()
+            return loss, {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                          if n.startswith(prefixes)}
+
+        for dtype, tol in ((None, GRAD_F32_TOL), (bf16, GRAD_BF16_TOL)):
+            label = "bf16" if dtype is bf16 else "f32"
+            _build.reset_launches()
+            k_loss, k_grads = step_grads(dtype)
+            require(all(_build.LAUNCHES[n] > 0 for n in TRAIN_KERNELS),
+                    f"the {what} {label} step did not launch every decode-attention kernel")
+            with ExitStack() as stack:
+                plain_kernels(stack, *kernel_modules)
+                _build.reset_launches()
+                p_loss, p_grads = step_grads(dtype)
+                require(not any(_build.LAUNCHES.values()), "the plain step launched a kernel")
+            rel = {n: ((k_grads[n] - p_grads[n]).abs().max()
+                       / p_grads[n].abs().max().clamp_min(1e-30)).item() for n in p_grads}
+            loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+            worst = max(rel, key=rel.get)
+            by_group = {g: max(v for n, v in rel.items() if n.startswith(g))
+                        for g in prefixes}
+            log(f"{what}: {label} step on B={batch['q'].shape[0]}, kernels against plain "
+                f"versions: loss {k_loss:.6f} vs {p_loss:.6f} (rel {loss_rel:.3g}); max "
+                f"|grad diff| / max |plain grad| by group "
+                f"{{{', '.join(f'{g}: {v:.3g}' for g, v in by_group.items())}}}, "
+                f"worst {worst} {rel[worst]:.3g} (tolerance {tol:g})")
+            require(loss_rel <= tol and rel[worst] <= tol,
+                    f"{what} {label} training step: kernels disagree with the plain versions")
+
+    grads_against_plain(mtl, train_batches[1], GRAD_PREFIXES, "train")
+
+    # -- 8b. widths the kernels refuse: their gates send them to the plain
+    # versions -------------------------------------------------------------
+    phase("8b refused widths")
+    # the serving model at hidden 1000: the GRU kernel takes H a multiple of
+    # 32, so the question GRU runs its plain scan, while the v-projection
+    # (N=1000) and the pooling keep their kernels
+    wide = set_model(**dict(dims, hidden_dim=1000), use_pallas=True,
+                     generator=torch.Generator().manual_seed(5))
+    wide = wide.to(device=dev, dtype=bf16).eval()
+    with torch.inference_mode():
         _build.reset_launches()
-        k_loss, k_grads = step_grads(dtype)
-        require(all(_build.LAUNCHES[n] > 0 for n in TRAIN_KERNELS),
-                f"the {label} step did not launch every decode-attention kernel")
+        score, label, _ = wide.forward_vqa(requests[0])
+        torch.cuda.synchronize()
+        h1000_launches = dict(_build.LAUNCHES)
+        got = wide(requests[0])[0].float()
         with ExitStack() as stack:
             plain_kernels(stack, *kernel_modules)
-            _build.reset_launches()
-            p_loss, p_grads = step_grads(dtype)
-            require(not any(_build.LAUNCHES.values()), "the plain step launched a kernel")
-        rel = {n: ((k_grads[n] - p_grads[n]).abs().max()
-                   / p_grads[n].abs().max().clamp_min(1e-30)).item() for n in p_grads}
-        loss_rel = abs(k_loss - p_loss) / abs(p_loss)
-        worst = max(rel, key=rel.get)
-        by_group = {g: max(v for n, v in rel.items() if n.startswith(g))
-                    for g in GRAD_PREFIXES}
-        grad_agreement[label] = (loss_rel, rel[worst])
-        log(f"train: {label} step on B={TRAIN_BATCH}, kernels against plain versions: "
-            f"loss {k_loss:.6f} vs {p_loss:.6f} (rel {loss_rel:.3g}); max |grad diff| / "
-            f"max |plain grad| by group {{{', '.join(f'{g}: {v:.3g}' for g, v in by_group.items())}}}, "
-            f"worst {worst} {rel[worst]:.3g} (tolerance {tol:g})")
-        require(loss_rel <= tol and rel[worst] <= tol,
-                f"{label} training step: kernels disagree with the plain versions")
+            want = wide(requests[0])[0].float()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"refused widths: the Up-Down model at hidden 1000 (use_pallas) answers one "
+        f"request of B={SERVE_BATCH}; kernel launches {h1000_launches}; logits vs the "
+        f"same model on plain versions: max abs err / max |logit| = {rel:.3g} "
+        f"(tolerance {LOGIT_REL_TOL:g})")
+    require(h1000_launches["gru_v2"] == 0, "the question GRU at H=1000 launched gru_v2")
+    require(h1000_launches["dequant_matmul"] == 1 and h1000_launches["pool_int8"] == 1,
+            "the H=1000 model left the dequant GEMM or the pooling kernel")
+    require(score.shape == (SERVE_BATCH, ANS) and torch.isfinite(got).all().item()
+            and rel <= LOGIT_REL_TOL, "the H=1000 model's logits disagree with plain versions")
+    del wide, got, want
+    # one MTL step with a decoder of width 500 (not whole 16-lane groups):
+    # the scan's attention takes its plain tail
+    narrow = set_model(**dict(mtl_dims, decoder_hidden_dim=500), use_pallas=True,
+                       generator=torch.Generator().manual_seed(6))
+    narrow_state = TrainState(narrow, make_optimizer(narrow, lr=TRAIN_LR, max_norm=TRAIN_CLIP),
+                              seed=RUN_SEED)
+    _build.reset_launches()
+    narrow_loss = make_train_step(narrow, narrow_state.optimizer, compute_dtype=bf16)(
+        narrow_state, train_batches[0])["loss"].item()
+    torch.cuda.synchronize()
+    h500_launches = dict(_build.LAUNCHES)
+    log(f"refused widths: one MTL step of B={TRAIN_BATCH} at decoder_hidden_dim 500 "
+        f"(use_pallas, bf16): loss {narrow_loss:.4f}; kernel launches {h500_launches}")
+    require(math.isfinite(narrow_loss), "the H=500 MTL step's loss is not finite")
+    require(not any(h500_launches[n] for n in TRAIN_KERNELS),
+            "the H=500 MTL step launched a decode-attention kernel")
+    del narrow, narrow_state
 
     # -- 9. train timing at the JAX package's MTL batch ---------------------
+    phase("9 train timing")
     with torch.inference_mode():
         fkw = dict(objs=OBJS, att_scale=ATT_SCALE, thresh=ATT_THRESH)
         # decode_att_fwd at the B=512 the training path launches it at
@@ -1415,6 +1569,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 10. serve ReGAT requests through the port's main path -------------
+    phase("10 ReGAT")
     regat = set_model(**REGAT_DIMS, use_pallas=True, use_int8=True,
                       generator=torch.Generator().manual_seed(3))
     regat = regat.to(device=dev, dtype=bf16).eval()
@@ -1467,6 +1622,7 @@ def main() -> int:
             ("int8_matmul_dequant", "int8_matmul_dequant_3d", "pool_int8"))
 
     # -- 11. ReGAT timing ---------------------------------------------------
+    phase("11 ReGAT timing")
     with torch.inference_mode():
         for name, batch, n, xs_dtype, with_bias in (
                 ("int8_matmul_dequant_3d", REGAT_TIME_BATCH, HIDDEN, bf16, True),
@@ -1548,10 +1704,17 @@ def main() -> int:
             profile_run("ReGAT forward", runs["kernels"], 1)
 
     # -- 13. the entry point, in this process ------------------------------
+    phase("13 entry point")
     del regat, regat_bf16, regat_dense, big, x_q, scale, runs, model, dec_model, dec_plain
     torch.cuda.empty_cache()
     cli_launches, cli_wall, cli_train_s, cli_steps, restored = {}, {}, {}, {}, {}
-    real_train, real_load = cli.train, cli.load_checkpoint
+    real_train, real_load, real_build = cli.train, cli.load_checkpoint, cli.build_model
+    built = []
+
+    def capturing_build(*a, **k):
+        """build_model, keeping the last model it built."""
+        built[:] = [real_build(*a, **k)]
+        return built[0]
     real_make_step = train_loop.make_train_step
 
     def timed_train(**kw):
@@ -1603,6 +1766,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work, ExitStack() as stack:
         stack.enter_context(mock.patch.object(cli, "train", timed_train))
         stack.enter_context(mock.patch.object(cli, "load_checkpoint", capturing_load))
+        stack.enter_context(mock.patch.object(cli, "build_model", capturing_build))
         roots = [make_synthetic_root(work, split=split, num_images=n_img,
                                      num_questions=n_q, num_objs=OBJS, v_dim=V_DIM,
                                      vocab_size=NTOKEN, num_answers=ANS, q_len=Q_LEN,
@@ -1610,10 +1774,19 @@ def main() -> int:
                  for split, n_img, n_q, seed in (("train2014", CLI_IMAGES, CLI_TRAIN_Q, 4),
                                                  ("val2014", CLI_IMAGES // 2, CLI_VAL_Q, 5))]
         root = roots[0]
+        # the frozen GloVe table CONFIGS.md's commands load: a 300-d line for
+        # each word of the synthetic vocabulary in id order (its four
+        # specials are the table's zero rows)
+        glove = os.path.join(work, "glove.6B.300d.txt")
+        t0 = time.perf_counter()
+        write_glove(glove, [w for w in Vocab.load(root["vocab_path"]).words
+                            if w not in Vocab.SPECIALS], EMBED, seed=6)
+        log(f"cli: wrote {glove} ({os.path.getsize(glove) / 2 ** 20:.1f} MiB) in "
+            f"{time.perf_counter() - t0:.2f} s")
         argv = ["--vocab_path", root["vocab_path"], "--ans_path", root["ans_path"],
                 "--load_path", root["annot"], "--feature_path", root["feature_root"],
-                "--pretrained_embed_path", "", "--comment", "mtl",
-                "--encoder_type", "base", "--predictor_type", "base",
+                "--pretrained_embed_path", glove, "--comment", "mtl",
+                "--encoder_type", "base", "--predictor_type", "base-cap",
                 "--decoder_type", "butd", "--select_path", "vqa-e", "--use_mtl", "1",
                 "--use_pallas", "1", "--feature_dtype", "int8",
                 "--train_dtype", "bfloat16", "--length_bucket", "1",
@@ -1628,6 +1801,14 @@ def main() -> int:
         for name in TRAIN_KERNELS:
             require(cli_launches["train"][name] > 0, f"--mode train never launched {name}")
         saved = torch.load(os.path.join(out, "epoch_0.ckpt"), weights_only=True)
+        table = built[0].encoder.embedding.table
+        in_ckpt = [k for k in saved["model"] if "embedding" in k]
+        log(f"cli: the frozen GloVe table {tuple(table.shape)} {table.dtype} on "
+            f"{table.device}; embedding keys in epoch_0.ckpt: {in_ckpt}")
+        require(table.device.type == "cuda" and table.shape == (NTOKEN, EMBED),
+                "the GloVe table is not on the card")
+        require(not in_ckpt, "the frozen GloVe table went into the checkpoint")
+        del table
         run_mode("resume", argv + ["--mode", "train", "--start_epoch", "1",
                                    "--epoches", "2"])
         for name in TRAIN_KERNELS:
@@ -1671,9 +1852,192 @@ def main() -> int:
         f"k=3, c_len={C_LEN}): {cli_wall['decode']:.2f} s wall, "
         f"{CLI_VAL_Q / cli_wall['decode']:.1f} captions/s [{card}]")
     cli_total = {k: sum(c[k] for c in cli_launches.values()) for k in _build.LAUNCHES}
+    built.clear()
+
+    # -- 14. ReGAT training (config 5) and GCN-LSTM -------------------------
+    phase("14 ReGAT training, GCN-LSTM")
+    torch.cuda.empty_cache()
+
+    def device_batch(b):
+        """A Loader batch's model inputs on the card, token ids as int64."""
+        keys = ("q", "c", "cap_len", "a", "img_q", "img_scale", "graph")
+        return {k: torch.from_numpy(b[k]).to(dev).to(
+            torch.long if k in ("q", "c", "cap_len") else None) for k in keys if k in b}
+
+    with tempfile.TemporaryDirectory() as root:
+        make_synthetic_root(root, split="train2014", num_images=64,
+                            num_questions=TRAIN_BATCH * 16, num_objs=OBJS, v_dim=V_DIM,
+                            vocab_size=NTOKEN, num_answers=ANS, q_len=Q_LEN, c_len=C_LEN,
+                            seed=7)
+        host = {}
+        for kind, bucket in (("vqa", False), ("vqa-e", True)):
+            ds = set_dataset(os.path.join(root, "annot"), os.path.join(root, "features"),
+                             ANS, graph_path=os.path.join(root, "graphs"), is_train=True,
+                             dataset_type=kind, feature_mode="int8")
+            host[kind] = list(itertools.islice(
+                Loader(ds, TRAIN_BATCH, shuffle=True, drop_last=True, length_bucket=bucket),
+                TRAIN_STEPS))
+    regat_batches = [device_batch(b) for b in host["vqa"]]
+    lstm_batches = [device_batch(b) for b in host["vqa-e"]]
+    require(len(regat_batches) == len(lstm_batches) == TRAIN_STEPS
+            and all("graph" in b for b in regat_batches + lstm_batches),
+            "the loader gave too few batches or no graphs")
+
+    def trainer(dims_, seed):
+        model_ = set_model(**dims_, use_pallas=True, generator=torch.Generator().manual_seed(seed))
+        state_ = TrainState(model_, make_optimizer(model_, lr=TRAIN_LR, max_norm=TRAIN_CLIP),
+                            seed=RUN_SEED)
+        return model_, state_, make_train_step(model_, state_.optimizer, compute_dtype=bf16)
+
+    # config 5: spatial corr-GCN, one layer, bf16 over f32 masters. Its only
+    # loss is the VQA BCE behind the head's trailing ReLU (the reference's
+    # FCNet): on random labels at lr 2e-3 every logit reaches 0 within a
+    # few steps, where the loss stays at ln 2 per answer and the gradient is
+    # 0 (phase 7's VQA loss does the same), so the repeated batch trains
+    # from the fresh weights, before the Loader steps
+    regat_m, regat_state, regat_step = trainer(REGAT_DIMS, 8)
+    _build.reset_launches()
+    repeated = [regat_step(regat_state, regat_batches[0])["loss"] for _ in range(REPEAT_STEPS)]
+    metrics = [regat_step(regat_state, b) for b in regat_batches]
+    torch.cuda.synchronize()
+    regat_train_launches = dict(_build.LAUNCHES)
+    repeated = [x.item() for x in repeated]
+    losses = [m["loss"].item() for m in metrics]
+    log(f"regat train: one batch of B={TRAIN_BATCH} {REPEAT_STEPS} times, then "
+        f"{TRAIN_STEPS} Loader steps, with spatial graphs through make_train_step "
+        f"(config 5, bf16 over f32 masters, use_pallas): losses "
+        f"{[round(x, 4) for x in repeated]}, then {[round(x, 4) for x in losses]} "
+        f"(ln 2 x {ANS} answers = {math.log(2) * ANS:.4f}); kernel launches "
+        f"{regat_train_launches}")
+    require(all(map(math.isfinite, repeated + losses)), "non-finite ReGAT training loss")
+    require(repeated[-1] < repeated[0], "the repeated ReGAT batch's loss did not fall")
+
+    # GCN-LSTM: the relation encoder with the BUTD decoder, use_mtl
+    lstm, lstm_state, lstm_step = trainer(LSTM_DIMS, 9)
+    decoder_steps = [b["c"].shape[1] - 1 for b in lstm_batches]
+    _build.reset_launches()
+    metrics = [lstm_step(lstm_state, b) for b in lstm_batches]
+    torch.cuda.synchronize()
+    lstm_train_launches = dict(_build.LAUNCHES)
+    losses = [m["loss"].item() for m in metrics]
+    log(f"gcn-lstm train: {TRAIN_STEPS} Loader steps of B={TRAIN_BATCH} (decoder steps "
+        f"{decoder_steps}; use_mtl, dropout 0.5 / 0.2, use_pallas, bf16 over f32 masters); "
+        f"losses {[round(x, 4) for x in losses]}, VQA "
+        f"{[round(m['train/loss'].item(), 4) for m in metrics]}, caption "
+        f"{[round(m['train/cap/loss'].item(), 4) for m in metrics]}; kernel launches "
+        f"{lstm_train_launches}")
+    require(all(map(math.isfinite, losses)), "non-finite GCN-LSTM training loss")
+    require(lstm_train_launches["decode_att_fwd"] == sum(decoder_steps)
+            and lstm_train_launches["decode_att_bwd"] == sum(decoder_steps),
+            "GCN-LSTM: decode_att_fwd / _bwd did not run once per decoder step")
+    require(lstm_train_launches["decode_att_dvp"] == TRAIN_STEPS,
+            "GCN-LSTM: decode_att_dvp did not run once per training step")
+    grads_against_plain(lstm, lstm_batches[1], LSTM_GRAD_PREFIXES, "gcn-lstm")
+
+    # a bf16 GCN-LSTM beam decode of the ReGAT requests (int8 feed, graphs)
+    lstm_serve = set_model(**LSTM_DIMS, use_pallas=True).to(device=dev, dtype=bf16).eval()
+    lstm_serve.load_state_dict(lstm.state_dict())
+    lstm_beam = make_beam_search(lstm_serve, BEAM_K, C_LEN, vocab.start, vocab.end,
+                                 fused_vocab=True)
+    with torch.inference_mode():
+        _build.reset_launches()
+        lstm_decoded = [lstm_beam(regat_requests[0])]
+        torch.cuda.synchronize()
+        lstm_dec_launches = dict(_build.LAUNCHES)
+        tokens, scores = lstm_decoded[0]
+        require(tokens.shape == (SERVE_BATCH, BEAM_K, C_LEN)
+                and bool(torch.isfinite(scores).all())
+                and bool(((tokens >= 0) & (tokens < NTOKEN)).all())
+                and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+                "GCN-LSTM beams are not well formed")
+        with ExitStack() as stack:
+            plain_kernels(stack, *kernel_modules)
+            lstm_plain = [lstm_beam(regat_requests[0])]
+        log(f"gcn-lstm decode: one request of B={SERVE_BATCH} with spatial graphs through "
+            f"make_beam_search(k={BEAM_K}, fused_vocab=True), bf16; kernel launches "
+            f"{lstm_dec_launches}")
+        compare_beams("every kernel on its plain version (GCN-LSTM)", lstm_decoded,
+                      lstm_plain, vocab.start)
+    for name in ("gcn_chain_fused", "gru_v2", "vocab_topk_lse"):
+        require(lstm_dec_launches[name] > 0, f"the GCN-LSTM decode never launched {name}")
+    del lstm_serve, lstm_beam, lstm_decoded, lstm_plain
+
+    # the step at B=4096, for information, with its peak memory
+    x_q, scale = int8_feed(TRAIN_TIME_BATCH * OBJS, V_DIM)
+    big = {"q": torch.randint(0, NTOKEN, (TRAIN_TIME_BATCH, Q_LEN), device=dev, generator=gen),
+           "a": (torch.randint(0, 4, (TRAIN_TIME_BATCH, ANS), device=dev, generator=gen)
+                 * (torch.rand(TRAIN_TIME_BATCH, ANS, device=dev, generator=gen) < 2e-3)) / 3.0,
+           "img_q": x_q.view(TRAIN_TIME_BATCH, OBJS, V_DIM),
+           "img_scale": scale.view(TRAIN_TIME_BATCH, OBJS).float(),
+           "graph": torch.randint(0, 12, (TRAIN_TIME_BATCH, OBJS, OBJS), device=dev,
+                                  generator=gen, dtype=torch.int32)}
+    captioned = dict(big, c=torch.randint(0, NTOKEN - 4, (TRAIN_TIME_BATCH, C_LEN), device=dev,
+                                          generator=gen),
+                     cap_len=torch.full((TRAIN_TIME_BATCH,), C_LEN, device=dev))
+    for label, step_fn, st, b in (("config 5 (ReGAT)", regat_step, regat_state, big),
+                                  ("GCN-LSTM", lstm_step, lstm_state, captioned)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(st, b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = time_ms(lambda: step_fn(st, b), 2)
+        log(f"time {label} train step B={TRAIN_TIME_BATCH} int8 feed, spatial graphs, bf16 "
+            f"over f32 masters, use_pallas: {ms:.2f} ms ({TRAIN_TIME_BATCH / ms * 1e3:.1f} "
+            f"samples/s); peak memory allocated {peak / 2 ** 30:.2f} GiB "
+            f"({(peak - base) / 2 ** 30:.2f} above the {base / 2 ** 30:.2f} held before the "
+            f"step) [{card}]")
+    del regat_m, regat_state, regat_step, lstm, lstm_state, lstm_step, big, captioned
+    del x_q, scale, regat_batches, lstm_batches
+    torch.cuda.empty_cache()
+
+    # the entry point on config 5's flags: train one epoch, then --mode val
+    with tempfile.TemporaryDirectory() as work, ExitStack() as stack:
+        roots = [make_synthetic_root(work, split=split, num_images=n_img,
+                                     num_questions=n_q, num_objs=OBJS, v_dim=V_DIM,
+                                     vocab_size=NTOKEN, num_answers=ANS, q_len=Q_LEN,
+                                     c_len=C_LEN, seed=seed)
+                 for split, n_img, n_q, seed in (
+                     ("train2014", REGAT_CLI_IMAGES, REGAT_CLI_TRAIN_Q, 10),
+                     ("val2014", REGAT_CLI_IMAGES // 2, REGAT_CLI_VAL_Q, 11))]
+        root = roots[0]
+        argv = ["--vocab_path", root["vocab_path"], "--ans_path", root["ans_path"],
+                "--load_path", root["annot"], "--feature_path", root["feature_root"],
+                "--graph_path", root["graph_root"], "--pretrained_embed_path", "",
+                "--comment", "regat", "--encoder_type", "relation", "--conv_type", "corr",
+                "--conv_layer", "1", "--predictor_type", "base", "--decoder_type", "none",
+                "--select_path", "vqa", "--use_pallas", "1", "--feature_dtype", "int8",
+                "--train_dtype", "bfloat16", "--embed_dim", str(EMBED),
+                "--hidden_dim", str(HIDDEN), "--v_dim", str(V_DIM),
+                "--batch_size", str(TRAIN_BATCH), "--seed", str(RUN_SEED)]
+        out = os.path.join(work, "checkpoint", "regat")
+        os.chdir(work)
+        stack.callback(os.chdir, here)
+        run_mode("regat_train", argv + ["--mode", "train", "--epoches", "1"])
+        saved = torch.load(os.path.join(out, "epoch_0.ckpt"), weights_only=True)
+        steps = REGAT_CLI_TRAIN_Q // TRAIN_BATCH
+        require(saved["step"] == steps, f"config 5's epoch_0.ckpt at step {saved['step']}")
+        require(any(k.startswith("encoder.spatial_encoder.conv0.") for k in saved["model"]),
+                "config 5's checkpoint holds no GCN")
+        os.remove(os.path.join(out, "valid", "scores.npy"))
+        run_mode("regat_val", argv + ["--mode", "val"])
+        scores = np.load(os.path.join(out, "valid", "scores.npy"))
+        require(scores.shape == (REGAT_CLI_VAL_Q,) and np.isfinite(scores).all(),
+                f"config 5's --mode val scored {scores.shape} questions")
+        require(cli_launches["regat_val"]["gcn_chain_fused"] > 0,
+                "config 5's --mode val never launched gcn_chain_fused")
+    log(f"time cli config 5: --mode train {cli_wall['regat_train']:.2f} s wall (model "
+        f"build, data, {steps} steps of B={TRAIN_BATCH}, validation of {REGAT_CLI_VAL_Q} "
+        f"questions, checkpoints), --mode val {cli_wall['regat_val']:.2f} s wall [{card}]")
+    phase("end")
+    log(f"total wall time {time.monotonic() - t_start:.1f} s")
 
     paths = {"vqa": launches, "decode": dec_launches, "train": train_launches,
              "regat": regat_launches, "regat_no_int8": bf16_launches,
+             "serve_h1000": h1000_launches, "train_h500": h500_launches,
+             "regat_train": regat_train_launches, "gcn_lstm_train": lstm_train_launches,
+             "gcn_lstm_decode": lstm_dec_launches,
              **{f"cli_{k}": v for k, v in cli_launches.items()}, "cli": cli_total}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
                 "launches": paths[MAIN_PATH[name]][name],

@@ -375,7 +375,6 @@ def test_cli_needs_a_card_or_device_cpu(workdir, tmp_path, monkeypatch):
             port_main.main(common_args(root, flags, device))
     argv = common_args(root, flags)
     for extra, what in ((["--n_model_shards", "2"], "n_model_shards"),
-                        (["--train_strategy", "select"], "train_select"),
-                        (["--predictor_type", "base-cap"], "base-cap")):
+                        (["--train_strategy", "select"], "train_select")):
         with pytest.raises(NotImplementedError, match=what):
             port_main.main(argv + extra)

@@ -23,11 +23,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from vqa_tpu.models.wrapper import set_model as jax_set_model
 from vqa_tpu.ops.pallas import decode_att as jda
+from vqa_tpu_torch.models.wrapper import set_model
 from vqa_tpu_torch.ops.kernels import _build
 from vqa_tpu_torch.ops.kernels import decode_att as da
+from vqa_tpu_torch.tools.convert import flax_to_state_dict
 
 B, OBJS, H, D = 8, 5, 16, 12
 SCALE = 256.0 / 205
@@ -76,6 +80,79 @@ def test_keep_mask_rate(thresh):
     mask = da.keep_mask(SEED, STEP, 64, 36, 1024, thresh)
     p, n = thresh / 256, mask.numel()
     assert abs(mask.double().mean().item() - p) < 4 * math.sqrt(p * (1 - p) / n)
+
+
+@pytest.mark.parametrize("hidden", [20, 24])
+def test_keep_mask_of_any_width(hidden):
+    """At an H that is not a multiple of 16 the mask draws the lane groups
+    of the next multiple (32) with the same keys and counters, and keeps
+    each box's first H lanes; its keep rate is thresh / 256 within 4 sigma
+    (as test_keep_mask_rate)."""
+    for t in (STEP, [0, STEP, 9]):
+        for stream in (0, 2):
+            got = da.keep_mask(SEED, t, 37, OBJS, hidden, 205, stream=stream,
+                               row0=3)
+            full = da.keep_mask(SEED, t, 37, OBJS, 32, 205, stream=stream,
+                                row0=3)
+            lead = full.shape[:-1]
+            want = full.reshape(*lead, OBJS, 32)[..., :hidden]
+            assert torch.equal(got, want.reshape(*lead, OBJS * hidden))
+    mask = da.keep_mask(SEED, range(20), 64, 36, hidden, 205)
+    p, n = 205 / 256, mask.numel()
+    assert abs(mask.double().mean().item() - p) < 4 * math.sqrt(p * (1 - p) / n)
+
+
+def _butd_twins(hidden, dropout, att_dropout):
+    """vqa_tpu's and the port's caption model (base encoder, BUTD decoder of
+    width ``hidden``, no VQA head) with the same weights; the port's with
+    ``use_pallas`` (here the wrappers' plain versions)."""
+    dims = dict(encoder_type="base", predictor_type="none",
+                decoder_type="butd", ntoken=30, v_dim=16, embed_dim=8,
+                hidden_dim=16, decoder_hidden_dim=hidden, ans_dim=4, c_len=7,
+                dropout=dropout, att_dropout=att_dropout, att_type="new")
+    rng = np.random.default_rng(7)
+    batch = {"q": rng.integers(0, 30, (4, 5)).astype(np.int32),
+             "img": rng.standard_normal((4, OBJS, 16)).astype(np.float32),
+             "c": rng.integers(0, 29, (4, 7)).astype(np.int32),
+             "cap_len": np.array([7, 3, 5, 2], np.int32)}
+    jm = jax_set_model(**dims)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    params = jm.init(jax.random.key(0), jb, method="get_loss")["params"]
+    port = set_model(**dims, use_pallas=True, device="cpu")
+    port.load_state_dict(flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, params)))
+    return jm, params, jb, port.train(), {k: torch.from_numpy(v)
+                                          for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("hidden", [20, 24])
+def test_butd_caption_loss_at_any_hidden_width(hidden):
+    """The BUTD caption loss in training at a decoder width that is not a
+    multiple of 16 (the scan takes the plain tail there): with dropout 0.5
+    / 0.2 the loss and every gradient are finite; at p=0 the loss and the
+    decoder's gradients equal vqa_tpu's (its fused-VJP scan)."""
+    _, _, _, port, tb = _butd_twins(hidden, 0.5, 0.2)
+    loss, _ = port.get_loss(tb, seed=SEED)
+    loss.backward()
+    assert math.isfinite(loss.item())
+    for name, prm in port.generator.named_parameters():
+        assert prm.grad is not None and torch.isfinite(prm.grad).all(), name
+    assert torch.isfinite(port.encoder.embedding.weight.grad).all()
+    jm, params, jb, port, tb = _butd_twins(hidden, 0.0, 0.0)
+
+    def jloss(p):
+        return jm.apply({"params": p}, jb, method="get_loss",
+                        deterministic=False, rngs={"dropout": jax.random.key(1)})
+
+    (want, _), w_grads = jax.value_and_grad(jloss, has_aux=True)(params)
+    got, _ = port.get_loss(tb, seed=SEED)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-4, atol=1e-5)
+    want_g = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, w_grads))
+    for name, prm in port.named_parameters():
+        if name.startswith("generator.") and not name.endswith("linear.bias"):
+            np.testing.assert_allclose(prm.grad.numpy(), want_g[name].numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=name)
 
 
 def regime_inputs(rng, regime: str):

@@ -187,11 +187,10 @@ def test_relation_model_bf16_int8_feed_matches_jax(rng):
     assert np.abs(got - want).max() <= 0.03 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("override", [
-    {"decoder_type": "butd"}, {"predictor_type": "q-cap"},
-    {"frozen_embedding": np.zeros((NTOKEN + 4, EMBED), np.float32)}])
+@pytest.mark.parametrize("override", [{"predictor_type": "q-cap"}])
 def test_set_model_rejects_what_stays_unported(override):
-    """A caption decoder over the relation encoder, the caption predictors
-    and frozen GloVe embeddings are not ported yet."""
+    """The Q-Relevant head is not ported yet (a caption decoder over the
+    relation encoder and frozen GloVe embeddings are:
+    tests/test_torch_regat_train.py, tests/test_torch_caption_heads.py)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         set_model(**{**DIMS, **override}, device="cpu")

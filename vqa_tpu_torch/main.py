@@ -9,10 +9,11 @@ under ``checkpoint/<comment>/``: ``param.pkl``, ``param.txt``, the log,
 It builds on ``--device`` (default ``cuda``); without a CUDA device it
 fails unless ``--device cpu`` is given, where the kernels run as their
 plain versions. Checkpoints are the port's own ``torch.save`` format
-(``training/checkpoint.py``). Not ported, and raising
-``NotImplementedError``: ``--n_model_shards`` above 1, ``--train_strategy
-select``, frozen GloVe embeddings, and every model type ``set_model`` does
-not hold.
+(``training/checkpoint.py``). Where ``--pretrained_embed_path`` names a
+file, its GloVe table is the encoder's frozen word embedding, as in the
+JAX entry point. Not ported, and raising ``NotImplementedError``:
+``--n_model_shards`` above 1, ``--train_strategy select`` and the
+``q-cap`` head.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from vqa_tpu_torch.data.dataset import set_dataset
 from vqa_tpu_torch.data.loader import Loader, prefetch_to_device
 from vqa_tpu_torch.data.tokenizer import Vocab
 from vqa_tpu_torch.models.wrapper import resolve_device, set_model
+from vqa_tpu_torch.ops.embedding import load_glove_table
 from vqa_tpu_torch.tools.beam import make_beam_search, tokens_to_captions
 from vqa_tpu_torch.training import optim as optim_lib
 from vqa_tpu_torch.training.checkpoint import (
@@ -59,10 +61,9 @@ def device_of(name: str) -> torch.device:
 
 
 def build_model(args, vocab: Vocab, ans_list, device: torch.device):
+    frozen = None
     if args.pretrained_embed_path and os.path.exists(args.pretrained_embed_path):
-        raise NotImplementedError(
-            "frozen GloVe embeddings (--pretrained_embed_path) are not ported "
-            "yet (ROADMAP.md Queue 1 item 1); pass --pretrained_embed_path ''")
+        frozen = load_glove_table(args.pretrained_embed_path)
     return set_model(
         encoder_type=args.encoder_type,
         predictor_type=args.predictor_type,
@@ -85,6 +86,7 @@ def build_model(args, vocab: Vocab, ans_list, device: torch.device):
         use_imp=bool(getattr(args, "use_imp", 0)),
         use_sem=bool(getattr(args, "use_sem", 0)),
         use_mtl=args.use_mtl,
+        frozen_embedding=frozen,
         use_pallas=bool(getattr(args, "use_pallas", 0)),
         use_int8=bool(getattr(args, "use_int8", 0)),
         generator=torch.Generator().manual_seed(args.seed),
@@ -143,7 +145,7 @@ def main(argv=None) -> None:
     if args.n_model_shards > 1:
         raise NotImplementedError(
             "--n_model_shards > 1 (a tensor-parallel mesh) is not ported yet "
-            "(ROADMAP.md Queue 1 item 8)")
+            "(ROADMAP.md Queue 1, Parallel)")
     if getattr(args, "train_strategy", "joint") == "select":
         train_select()
     # --val_every N overrides the reference's derived mid-epoch validation

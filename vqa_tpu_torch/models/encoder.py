@@ -1,5 +1,5 @@
 """Question/visual encoders (counterparts of ``vqa_tpu/models/encoder.py``
-``BaseEncoder`` and ``RelationEncoder``).
+``BaseEncoder``, ``RelationEncoder`` and ``CaptionEncoder``).
 
 Batch dict: ``q`` [B, q_len] int tokens, and either ``img`` [B, objs, v_dim]
 float features or the int8 feed ``img_q`` [B, objs, v_dim] int8 with
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -23,6 +24,46 @@ from vqa_tpu_torch.ops.gcn import GCN
 from vqa_tpu_torch.ops.kernels import lazyv_pool
 from vqa_tpu_torch.ops.linear import FCNet
 from vqa_tpu_torch.ops.rnn import SentenceEmbedding
+
+
+def _caption(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+             embedding: WordEmbedding) -> Dict[str, torch.Tensor]:
+    """Add the embedded caption ``c`` [B, c_len, embed], its tokens
+    ``c_target`` and ``cap_len`` where the batch has a caption."""
+    if "c" in batch:
+        out["c"] = embedding(batch["c"])
+        out["c_target"] = batch["c"]
+        out["cap_len"] = batch["cap_len"]
+    return out
+
+
+class CaptionEncoder(nn.Module):
+    """Caption-only encoder (reference encoder.py:66-94): the visual
+    features pass through as ``v`` and the caption is embedded. On the int8
+    feed ``v`` is the dequantized features in the scale's dtype, with the
+    factored form beside it, ``v_q8`` (the payload) and ``v_w`` (the scales:
+    there is no attention to fold in), which the caption scan reads."""
+
+    def __init__(self, ntoken: int, embed_dim: int,
+                 frozen_embedding: Optional[np.ndarray] = None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embedding = WordEmbedding(ntoken, embed_dim,
+                                       frozen_table=frozen_embedding,
+                                       generator=generator)
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embedding(tokens)
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        if "img_q" in batch:
+            img_q, img_scale = batch["img_q"], batch["img_scale"]
+            out = {"v": img_q.to(img_scale.dtype) * img_scale[..., None],
+                   "v_q8": img_q, "v_w": img_scale}
+        else:
+            out = {"v": batch["img"]}
+        return _caption(out, batch, self.embedding)
 
 
 class BaseEncoder(nn.Module):
@@ -40,7 +81,8 @@ class BaseEncoder(nn.Module):
 
     On the int8 feed the outputs follow their readers: ``with_v_sum`` (a
     VQA predictor reads the pooled ``v_sum``) and ``with_v`` (a caption
-    decoder reads the attended features ``v``).
+    decoder reads the attended features ``v``). ``frozen_embedding``: a
+    GloVe table in place of the learned word embedding.
     """
 
     def __init__(self, ntoken: int, v_dim: int, embed_dim: int,
@@ -49,13 +91,16 @@ class BaseEncoder(nn.Module):
                  att_dropout: float = 0.2, use_pallas: bool = False,
                  use_int8: bool = False, *,
                  with_v: bool = False, with_v_sum: bool = True,
+                 frozen_embedding: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.use_pallas = use_pallas
         self.use_int8 = use_int8
         self.with_v = with_v
         self.with_v_sum = with_v_sum
-        self.embedding = WordEmbedding(ntoken, embed_dim, generator=generator)
+        self.embedding = WordEmbedding(ntoken, embed_dim,
+                                       frozen_table=frozen_embedding,
+                                       generator=generator)
         # torch applies RNN dropout only between stacked layers
         self.q_rnn = SentenceEmbedding(embed_dim, hidden_dim,
                                        rnn_layer=rnn_layer, dropout=dropout,
@@ -87,12 +132,7 @@ class BaseEncoder(nn.Module):
         - with a caption ``c`` in the batch: ``c`` embedded [B, c_len,
           embed], ``c_target`` (= the tokens) and ``cap_len``.
         """
-        out = self._visual(batch)
-        if "c" in batch:
-            out["c"] = self.embedding(batch["c"])
-            out["c_target"] = batch["c"]
-            out["cap_len"] = batch["cap_len"]
-        return out
+        return _caption(self._visual(batch), batch, self.embedding)
 
     def _visual(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -128,8 +168,9 @@ class BaseEncoder(nn.Module):
         w = v_att[..., 0] * img_scale.to(v_att.dtype)
         out = {"q": self.q_net(q), "v_att": v_att, "v_q8": img_q, "v_w": w}
         if self.with_v_sum:
-            pool = lazyv_pool.pool_int8 if use_kernel \
-                else lazyv_pool.pool_int8_reference
+            pool = (lazyv_pool.pool_int8
+                    if use_kernel and lazyv_pool.supports(*img_q.shape, w.dtype)
+                    else lazyv_pool.pool_int8_reference)
             out["v_sum"] = pool(w, img_q)
         if self.with_v:
             out["v"] = v_att * v
@@ -156,10 +197,12 @@ class RelationEncoder(BaseEncoder):
                  use_int8: bool = False, *, conv_layer: int = 1,
                  conv_type: str = "corr", use_imp: bool = False,
                  use_spa: bool = True, use_sem: bool = False,
+                 frozen_embedding: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(ntoken, v_dim, embed_dim, hidden_dim, rnn_layer,
                          dropout, rnn_type, att_type, att_dropout,
                          use_pallas, use_int8, with_v=True, with_v_sum=False,
+                         frozen_embedding=frozen_embedding,
                          generator=generator)
         if not (use_imp or use_spa or use_sem):
             raise ValueError("Should use at least one relation")

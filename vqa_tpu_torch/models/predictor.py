@@ -1,5 +1,5 @@
-"""Up-Down VQA answer head (counterpart of ``vqa_tpu/models/predictor.py``
-``BasePredictor``).
+"""VQA answer heads (counterparts of ``vqa_tpu/models/predictor.py``
+``BasePredictor`` and ``BaseCaptionPredictor``).
 
 The classifier is an FCNet, whose trailing ReLU makes the "logits"
 non-negative, as in the reference (modules.py:55).
@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from vqa_tpu_torch.ops.linear import FCNet
+from vqa_tpu_torch.ops.rnn import SentenceEmbedding
 
 
 class BasePredictor(nn.Module):
@@ -31,6 +32,33 @@ class BasePredictor(nn.Module):
     def forward(self, embed: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Encoder output -> [B, ans_dim]. Reads the pooled ``v_sum`` of the
         int8 feed when present, else sums ``v`` over the boxes."""
-        v = embed["v_sum"] if "v_sum" in embed else embed["v"].sum(dim=1)
-        joint = embed["q"] * self.v_net(v)
+        joint = embed["q"] * self.v_net(_pooled(embed))
         return self.classifier(joint)
+
+
+class BaseCaptionPredictor(BasePredictor):
+    """The VQA-E head (``base-cap``, reference predictor.py:96-140): the
+    base head with the embedded caption read too, by a 1-layer GRU
+    ``c_rnn`` (its last padded step; never the GRU kernel, as in the JAX
+    package) and an FCNet ``c_net``; the joint is ``q * (c + v)``."""
+
+    def __init__(self, v_dim: int, embed_dim: int, hidden_dim: int,
+                 ans_dim: int, cls_layer: int = 2, dropout: float = 0.5, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(v_dim, hidden_dim, ans_dim, cls_layer, dropout,
+                         generator=generator)
+        self.c_rnn = SentenceEmbedding(embed_dim, hidden_dim, rnn_type="GRU",
+                                       generator=generator)
+        self.c_net = FCNet(hidden_dim, hidden_dim, dropout=dropout,
+                           generator=generator)
+
+    def forward(self, embed: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Encoder output, the embedded caption ``c`` included ->
+        [B, ans_dim]."""
+        c = self.c_net(self.c_rnn(embed["c"]))
+        joint = embed["q"] * (c + self.v_net(_pooled(embed)))
+        return self.classifier(joint)
+
+
+def _pooled(embed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return embed["v_sum"] if "v_sum" in embed else embed["v"].sum(dim=1)

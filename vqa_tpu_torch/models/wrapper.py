@@ -1,12 +1,14 @@
 """Model composition and the VQA metric and loss (counterpart of
 ``vqa_tpu/models/wrapper.py``).
 
-The port holds the Up-Down paths: the base encoder with the base VQA
-predictor, the Base/BUTD caption decoders, or both, for inference and for
-training through ``get_loss`` (the MTL uncertainty weighting with both
-heads); and ReGAT: the relation encoder with the base VQA predictor.
-``set_model`` raises ``NotImplementedError`` for every type or option
-outside them.
+The port holds the encoders ``base``, ``relation`` (ReGAT) and ``cap``,
+the VQA heads ``base`` and ``base-cap`` (VQA-E, which reads the caption
+too), and the Base/BUTD caption decoders over any of the encoders (the
+relation encoder with a decoder is GCN-LSTM), each alone or with both
+heads, for inference and for training through ``get_loss`` (the MTL
+uncertainty weighting with both heads), with a learned or a frozen GloVe
+word embedding. ``set_model`` raises ``NotImplementedError`` for the
+Q-Relevant head ``q-cap``.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vqa_tpu_torch.models.encoder import BaseEncoder, RelationEncoder
+from vqa_tpu_torch.models.encoder import (
+    BaseEncoder, CaptionEncoder, RelationEncoder)
 from vqa_tpu_torch.models.generator import set_decoder
-from vqa_tpu_torch.models.predictor import BasePredictor
+from vqa_tpu_torch.models.predictor import BaseCaptionPredictor, BasePredictor
 
 
 def compute_score(predict: torch.Tensor, target: torch.Tensor,
@@ -114,7 +117,7 @@ class VQAModel(nn.Module):
                                              caption["mask"])
         predict = self.predictor(embed) if self.predictor is not None else None
         log_vars = self.log_vars if self.mtl_active else None
-        loss = torch.zeros((), dtype=torch.float32, device=embed["q"].device)
+        loss = torch.zeros((), dtype=torch.float32, device=embed["v"].device)
         writes: Dict[str, torch.Tensor] = {}
         if predict is not None:
             target = _at_least_f32(batch["a"])
@@ -197,39 +200,42 @@ def set_model(encoder_type: str = "base",
     f32 on the CPU from ``generator`` (so a seed gives the same weights on
     any device), then moved to ``device``: ``cuda:0`` unless the caller
     asks for another, and an error where there is no CUDA device and no
-    ``device`` was given."""
+    ``device`` was given. ``frozen_embedding``: a GloVe table
+    (``ops/embedding.py`` ``load_glove_table``) in place of the encoder's
+    learned word embedding."""
     del neg_slope
-    not_yet = "is not ported yet (ROADMAP.md Queue 1)"
-    if encoder_type not in ("base", "relation"):
-        raise NotImplementedError(f"encoder_type {encoder_type!r} {not_yet}")
-    if predictor_type not in ("base", "none"):
-        raise NotImplementedError(
-            f"predictor_type {predictor_type!r} {not_yet}")
+    if encoder_type not in ("base", "relation", "cap"):
+        raise ValueError(f"unknown encoder_type: {encoder_type}")
+    if predictor_type == "q-cap":
+        raise NotImplementedError("predictor_type 'q-cap' is not ported yet "
+                                  "(ROADMAP.md Queue 1, Q-Relevant)")
+    if predictor_type not in ("base", "base-cap", "none"):
+        raise ValueError(f"unknown predictor_type: {predictor_type}")
     if decoder_type not in ("base", "butd", "none"):
-        raise NotImplementedError(f"decoder_type {decoder_type!r} {not_yet}")
-    if encoder_type == "relation" and decoder_type != "none":
-        raise NotImplementedError(
-            f"a caption decoder over the relation encoder {not_yet}")
-    if frozen_embedding is not None:
-        raise NotImplementedError(f"a frozen GloVe embedding {not_yet}")
+        raise ValueError(f"unknown decoder_type: {decoder_type}")
     target = resolve_device(device)    # fails before any weight is drawn
     common = dict(rnn_layer=rnn_layer, dropout=dropout, rnn_type=rnn_type,
                   att_type=att_type, att_dropout=att_dropout,
                   use_pallas=use_pallas, use_int8=use_int8,
-                  generator=generator)
+                  frozen_embedding=frozen_embedding, generator=generator)
     if encoder_type == "relation":
         encoder = RelationEncoder(ntoken, v_dim, embed_dim, hidden_dim,
                                   conv_layer=conv_layer, conv_type=conv_type,
                                   use_imp=bool(use_imp), use_spa=bool(use_spa),
                                   use_sem=bool(use_sem), **common)
+    elif encoder_type == "cap":
+        encoder = CaptionEncoder(ntoken, embed_dim, frozen_embedding,
+                                 generator=generator)
     else:
         encoder = BaseEncoder(ntoken, v_dim, embed_dim, hidden_dim,
                               with_v=decoder_type != "none",
                               with_v_sum=predictor_type != "none", **common)
-    predictor = (BasePredictor(v_dim, hidden_dim, ans_dim,
-                               cls_layer=cls_layer, dropout=dropout,
-                               generator=generator)
-                 if predictor_type == "base" else None)
+    head = dict(cls_layer=cls_layer, dropout=dropout, generator=generator)
+    predictor = (BasePredictor(v_dim, hidden_dim, ans_dim, **head)
+                 if predictor_type == "base" else
+                 BaseCaptionPredictor(v_dim, embed_dim, hidden_dim, ans_dim,
+                                      **head)
+                 if predictor_type == "base-cap" else None)
     decoder = set_decoder(decoder_type, ntoken, decoder_hidden_dim, c_len,
                           dropout=dropout, rnn_type=rnn_type,
                           att_type=att_type, att_dropout=att_dropout,

@@ -23,9 +23,11 @@ steps. ``make_butd_caption_scan`` returns ``(scan_fn, reference_fn)``:
 
 ``pallas_att`` routes each step's attention tail, the reverse step and the
 deferred ``d_vp`` to the decode-attention kernels
-(``ops/kernels/decode_att.py``; on CPU tensors their plain versions). Without
-it the plain versions run on any device, with the attention masks drawn
-once in the forward and kept for the backward.
+(``ops/kernels/decode_att.py``; on CPU tensors their plain versions) where
+the kernels take the scan's shapes (``decode_att.supports``: H and D
+multiples of 16, at most 64 boxes, H and D at most 8192, 16-byte aligned
+operands). Otherwise the plain versions run on any device, with the
+attention masks drawn once in the forward and kept for the backward.
 
 Dropout follows the 8-bit keep law of ``quantized_keep``: the attention
 mask and the two hidden-state masks (``h1`` before the h1 FC, ``h2`` before
@@ -169,9 +171,12 @@ class _Scan(torch.autograd.Function):
         vp2, pool2, w_ = _flat_inputs(pool, w, vp)
         k = wn_kernel(P[_LIN + "weight_v"], P[_LIN + "weight_g"]).reshape(H)
         att_masks = []
+        kernels = cfg.pallas and da.supports(
+            objs, H, pool2.shape[1] // objs, vp2.dtype, pool2.dtype,
+            aligned=vp2.data_ptr() % 16 == 0 and pool2.data_ptr() % 16 == 0)
 
         def tail(qp, t):
-            if cfg.pallas:
+            if kernels:
                 return da.decode_att_fwd(vp2, pool2, w_, qp, k, seed, t,
                                          objs=objs, att_scale=cfg.a_scale,
                                          thresh=cfg.a_thresh)
@@ -189,6 +194,7 @@ class _Scan(torch.autograd.Function):
         h1s, h2s, atts, att_vs, feats = cfg.run(P, prev_seq, v_gates, h1_0,
                                                 h2_0, *keeps, tail)
         ctx.cfg, ctx.seed, ctx.att_masks, ctx.keeps = cfg, seed, att_masks, keeps
+        ctx.kernels = kernels
         ctx.save_for_backward(pool, w, vp, v_gates, prev_seq, h1s, h2s, atts,
                               att_vs, *params)
         return feats
@@ -232,7 +238,7 @@ class _Scan(torch.autograd.Function):
                     (h2n, feat), [P[n] for n in SEG_B] + [h2_in, hq_in, av_in],
                     (d_h2, d_feats[t]))
             g_attv = g_attv.contiguous()
-            if cfg.pallas:
+            if ctx.kernels:
                 d_qp_pre, m, dl = da.decode_att_bwd(
                     vp2, pool2, w_, atts[t], g_attv, seed, t, objs=objs,
                     thresh=cfg.a_thresh)
@@ -270,7 +276,7 @@ class _Scan(torch.autograd.Function):
                       _LIN + "bias": d_b.reshape(lin_b.shape).to(lin_b.dtype)})
         # the deferred gradient of vp: one reduction over the steps
         dls, qps = torch.stack(dls), torch.stack(qps)
-        if cfg.pallas:
+        if ctx.kernels:
             d_vp = da.decode_att_dvp(dls, qps, k.to(dls.dtype), seed, objs=objs,
                                      att_scale=cfg.a_scale, thresh=cfg.a_thresh,
                                      out_dtype=vp.dtype)

@@ -143,11 +143,14 @@ class CorrelatedGraphConv(DirectedGraphConv):
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(out [B, N, out], alpha [B, N, N]). At inference with
         ``use_pallas`` (and without ``need_alpha``) the chain after the
-        projections runs as the ``gcn_chain_fused`` kernel, which forms no
-        alpha: None is returned for it."""
+        projections runs as the ``gcn_chain_fused`` kernel where it takes
+        the shapes (``gcn_chain.supports``), which forms no alpha: None is
+        returned for it."""
         fq = self._quantized_input(feature)
         if self.use_pallas and not self.training and self.dir_num >= 2 \
-                and not need_alpha:
+                and not need_alpha and gcn_chain.supports(
+                    *feature.shape[:2], self.label_bias.shape[1],
+                    self.num_labels, feature.dtype):
             out_self, proj, bias = self.conv(feature, graph, return_parts=True,
                                              fq=fq)
             fc, u, w = self.dot_product.similarity_parts(feature, aq=fq)

@@ -155,14 +155,32 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def holds(rules, *args, **kwargs) -> bool:
+    """Whether a kernel's shape and type ``rules`` accept ``args``: the
+    rules raise ValueError or TypeError, and the wrapper calls them before
+    it builds, so a module's ``supports`` and its wrapper's refusals are
+    the same test."""
+    try:
+        rules(*args, **kwargs)
+    except (ValueError, TypeError):
+        return False
+    return True
+
+
+def check_dtype(kernel: str, name: str, got: torch.dtype,
+                want: torch.dtype) -> None:
+    """Raise TypeError unless operand ``name`` has the dtype ``want``."""
+    if got != want:
+        raise TypeError(f"{kernel}: {name} must be {want}, got {got}")
+
+
 def check_operand(kernel: str, name: str, t: torch.Tensor,
                   dtype: torch.dtype, device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
     that needs no gradient (the kernels define no backward)."""
     if t.device != device:
         raise ValueError(f"{kernel}: {name} is on {t.device}, not {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    check_dtype(kernel, name, t.dtype, dtype)
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
     if t.requires_grad and torch.is_grad_enabled():

@@ -90,13 +90,14 @@ def keep_mask(seed: int, t: Union[int, Sequence[int], torch.Tensor], rows: int,
               row0: int = 0, device=None) -> torch.Tensor:
     """The uint8 keep mask [rows, objs * H] (1 = kept) of step ``t`` for
     batch rows ``row0 .. row0 + rows``; for a sequence of steps, [len(t),
-    rows, objs * H]. ``H`` must be a multiple of 16."""
-    if H % LANES:
-        raise ValueError(f"keep_mask: H={H} is not a multiple of {LANES}")
+    rows, objs * H]. Any H: it draws ``ceil(H / 16)`` lane groups and keeps
+    each box's first H lanes, so the mask of an H that is not a multiple of
+    16 is the first H lanes of the next multiple's."""
+    groups = -(-H // LANES)
     steps = torch.as_tensor(t, dtype=torch.int64, device=device)
     b = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
     n = torch.arange(objs, dtype=torch.int64, device=device)
-    g = torch.arange(H // LANES, dtype=torch.int64, device=device)
+    g = torch.arange(groups, dtype=torch.int64, device=device)
     k1 = ((steps + (stream << 16)) & _MASK32).reshape(-1, 1, 1, 1)
     words = philox4x32_10(
         (b.view(1, -1, 1, 1), n.view(1, 1, -1, 1), g.view(1, 1, 1, -1),
@@ -106,7 +107,9 @@ def keep_mask(seed: int, t: Union[int, Sequence[int], torch.Tensor], rows: int,
     # [T, rows, objs, G, word i, byte j]: lane 16 g + 4 i + j
     bytes_ = (torch.stack(torch.broadcast_tensors(*words), dim=-1)[..., None]
               >> shifts) & 0xFF
-    keep = (bytes_ < thresh).to(torch.uint8).reshape(-1, rows, objs * H)
+    keep = (bytes_ < thresh).to(torch.uint8).reshape(-1, rows, objs,
+                                                     groups * LANES)
+    keep = keep[..., :H].reshape(-1, rows, objs * H)
     return keep if steps.dim() else keep[0]
 
 
@@ -114,7 +117,7 @@ def philox_draws(batch: int, objs: int, H: int, steps: int = 1) -> int:
     """Philox4x32-10 calls that the masks of ``steps`` decode steps take: one
     a (row, box, 16-lane group) a step. The forward and backward kernels
     draw one step's masks, the deferred reduction all T steps'."""
-    return batch * objs * (H // LANES) * steps
+    return batch * objs * -(-H // LANES) * steps
 
 
 def _masked(x: torch.Tensor, keep: Optional[torch.Tensor], scale: float = 1.0):
@@ -191,21 +194,53 @@ def _check(kernel: str, **operands) -> None:
         _build.check_operand(kernel, name, t, dtype, device)
 
 
-def _pool_kind(pool2: torch.Tensor, act: torch.dtype) -> int:
+def _pool_kind(pool_dtype: torch.dtype, act: torch.dtype) -> int:
     """0: the pooling payload has the activations' dtype; 1: int8."""
-    if pool2.dtype == torch.int8:
+    if pool_dtype == torch.int8:
         return 1
-    if pool2.dtype != act:
+    if pool_dtype != act:
         raise TypeError(f"decode_att: pool2 must be int8 or {act}, "
-                        f"got {pool2.dtype}")
+                        f"got {pool_dtype}")
     return 0
 
 
-def _act(kernel: str, x: torch.Tensor) -> int:
-    if x.dtype not in _ACT:
+def _act(kernel: str, dtype: torch.dtype) -> int:
+    if dtype not in _ACT:
         raise TypeError(f"{kernel}: activations must be float32 or bfloat16, "
-                        f"got {x.dtype}")
-    return _ACT[x.dtype]
+                        f"got {dtype}")
+    return _ACT[dtype]
+
+
+def _widths(kernel: str, objs: int, H: int, D: int) -> None:
+    """The three kernels' rule: whole 16-lane groups, at most 64 boxes."""
+    if H % LANES or D % LANES or objs > 64:
+        raise ValueError(f"{kernel}: H={H} (vp2, qps) and D={D} (pool2) must "
+                         f"be multiples of {LANES}, and objs={objs} at most 64")
+
+
+def _fwd_widths(H: int, D: int) -> None:
+    if H > MAX_FWD_WIDTH or D > MAX_FWD_WIDTH:
+        raise ValueError(f"decode_att_fwd: H={H} and D={D} must be at most "
+                         f"{MAX_FWD_WIDTH}")
+
+
+def _rules(objs: int, H: int, D: int, dtype: torch.dtype,
+           pool_dtype: torch.dtype) -> None:
+    _act("decode_att", dtype)
+    _pool_kind(pool_dtype, dtype)
+    _widths("decode_att", objs, H, D)
+    _fwd_widths(H, D)
+
+
+def supports(objs: int, H: int, D: int, dtype: torch.dtype,
+             pool_dtype: torch.dtype, aligned: bool = True) -> bool:
+    """Whether decode_att_fwd, _bwd and _dvp all take one scan's operands:
+    ``dtype`` activations, attention width H, a pooling payload of
+    ``pool_dtype`` and width D over ``objs`` boxes, at any B and T.
+    ``aligned``: whether vp2 and the payload start on 16-byte boundaries
+    (the forward's bulk copies read them from there; the per-step qp and
+    the stacked qps the scan hands the kernels are fresh allocations)."""
+    return aligned and _build.holds(_rules, objs, H, D, dtype, pool_dtype)
 
 
 def _thresh_arg(thresh: Optional[int]) -> int:
@@ -224,9 +259,7 @@ def _shapes(kernel: str, vp2, pool2, B: int, objs: int):
         raise ValueError(f"{kernel}: shapes vp2 {tuple(vp2.shape)}, pool2 "
                          f"{tuple(pool2.shape)}, B={B}, objs={objs}")
     H, D = vp2.shape[1] // objs, pool2.shape[1] // objs
-    if H % LANES or D % LANES or objs > 64:
-        raise ValueError(f"{kernel}: H={H} and D={D} must be multiples of "
-                         f"{LANES}, and objs={objs} at most 64")
+    _widths(kernel, objs, H, D)
     return H, D
 
 
@@ -252,7 +285,7 @@ def decode_att_fwd(vp2, pool2, w, qp, k, seed: int, t: int, *, objs: int,
         return out
     if emit_mask and thresh is None:
         raise ValueError("decode_att_fwd: emit_mask needs a dropout thresh")
-    act, dev = _act("decode_att_fwd", qp), qp.device
+    act, dev = _act("decode_att_fwd", qp.dtype), qp.device
     Hv, D = _shapes("decode_att_fwd", vp2, pool2, B, objs)
     if Hv != H or k.numel() != H:
         raise ValueError(f"decode_att_fwd: vp2 has H={Hv}, qp {H}, k {k.numel()}")
@@ -261,14 +294,12 @@ def decode_att_fwd(vp2, pool2, w, qp, k, seed: int, t: int, *, objs: int,
     if w is not None:
         ops["w"] = (w, qp.dtype, dev)
     _check("decode_att_fwd", **ops)
-    if H > MAX_FWD_WIDTH or D > MAX_FWD_WIDTH:
-        raise ValueError(f"decode_att_fwd: H={H} and D={D} must be at most "
-                         f"{MAX_FWD_WIDTH}")
+    _fwd_widths(H, D)
     for name, x in (("vp2", vp2), ("pool2", pool2), ("qp", qp)):
         if x.data_ptr() % 16:   # the bulk copies read from 16-byte boundaries
             raise ValueError(f"decode_att_fwd: {name} must start on a "
                              "16-byte boundary")
-    kind = _pool_kind(pool2, qp.dtype)
+    kind = _pool_kind(pool2.dtype, qp.dtype)
     att = torch.empty((B, objs), dtype=qp.dtype, device=dev)
     att_v = torch.empty((B, D), dtype=qp.dtype, device=dev)
     mask = (torch.empty((B, objs * H), dtype=torch.uint8, device=dev)
@@ -289,7 +320,7 @@ def decode_att_bwd(vp2, pool2, w, att, g_attv, seed: int, t: int, *,
         return decode_att_bwd_reference(vp2, pool2, w, att, g_attv, seed, t,
                                         objs=objs, thresh=thresh)
     B = att.shape[0]
-    act, dev, dt = _act("decode_att_bwd", g_attv), att.device, g_attv.dtype
+    act, dev, dt = _act("decode_att_bwd", g_attv.dtype), att.device, g_attv.dtype
     H, D = _shapes("decode_att_bwd", vp2, pool2, B, objs)
     ops = dict(vp2=(vp2, dt, dev), att=(att, dt, dev),
                g_attv=(g_attv, dt, dev), pool2=(pool2, pool2.dtype, dev))
@@ -299,7 +330,7 @@ def decode_att_bwd(vp2, pool2, w, att, g_attv, seed: int, t: int, *,
     if att.shape != (B, objs) or g_attv.shape != (B, D):
         raise ValueError(f"decode_att_bwd: att {tuple(att.shape)}, g_attv "
                          f"{tuple(g_attv.shape)}")
-    kind = _pool_kind(pool2, dt)
+    kind = _pool_kind(pool2.dtype, dt)
     d_qp = torch.empty((B, H), dtype=dt, device=dev)
     m = torch.empty((B, objs), dtype=dt, device=dev)
     dl = torch.empty((B, objs), dtype=dt, device=dev)
@@ -382,16 +413,15 @@ def decode_att_dvp(dls, qps, k, seed: int, *, objs: int, att_scale: float,
                                         out_dtype=out_dtype)
     T, B, n = dls.shape
     H = qps.shape[2]
-    act, dev, dt = _act("decode_att_dvp", dls), dls.device, dls.dtype
-    if n != objs or qps.shape[:2] != (T, B) or k.numel() != H or H % LANES:
+    act, dev, dt = _act("decode_att_dvp", dls.dtype), dls.device, dls.dtype
+    if n != objs or qps.shape[:2] != (T, B) or k.numel() != H:
         raise ValueError(f"decode_att_dvp: dls {tuple(dls.shape)}, qps "
                          f"{tuple(qps.shape)}, k {k.numel()}, objs={objs}")
+    _widths("decode_att_dvp", objs, H, LANES)
     if out_dtype not in _ACT:
         raise TypeError(f"decode_att_dvp: out_dtype {out_dtype}")
     _check("decode_att_dvp", dls=(dls, dt, dev), qps=(qps, dt, dev),
            k=(k, dt, dev))
-    if objs > 64:
-        raise ValueError(f"decode_att_dvp: objs={objs} must be at most 64")
     if qps.data_ptr() % 16:   # the bulk copies read from 16-byte boundaries
         raise ValueError("decode_att_dvp: qps must start on a 16-byte "
                          "boundary")

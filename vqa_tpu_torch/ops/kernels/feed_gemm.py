@@ -34,6 +34,18 @@ def dequant_matmul_reference(x_q: torch.Tensor, x_scale: torch.Tensor,
     return torch.matmul(x, w)
 
 
+def _rules(m: int, k: int, n: int, w_dtype: torch.dtype) -> None:
+    if k % _K_STEP or n % _N_STEP:
+        raise ValueError(f"dequant_matmul: K={k} must be a multiple of "
+                         f"{_K_STEP} and N={n} of {_N_STEP}")
+    _build.check_dtype("dequant_matmul", "w", w_dtype, torch.bfloat16)
+
+
+def supports(m: int, k: int, n: int, w_dtype: torch.dtype) -> bool:
+    """Whether the kernel takes x_q [m, k] times a ``w_dtype`` w [k, n]."""
+    return _build.holds(_rules, m, k, n, w_dtype)
+
+
 def dequant_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
     """``(x_q.to(w.dtype) * x_scale[:, None]) @ w`` without the dequantized
@@ -41,9 +53,9 @@ def dequant_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
 
     CPU tensors run :func:`dequant_matmul_reference`. CUDA tensors launch the
     kernel, which takes a bf16 ``w``, K a multiple of 16 and N a multiple of
-    8, and masks ragged M, N and K; anything else raises. The kernel reads the
-    weight as [N, K] (torch's Linear layout): pass ``weight.t()`` and no copy
-    is made.
+    8 (:func:`supports`), and masks ragged M, N and K; anything else raises.
+    The kernel reads the weight as [N, K] (torch's Linear layout): pass
+    ``weight.t()`` and no copy is made.
     """
     if x_q.device.type == "cpu":
         return dequant_matmul_reference(x_q, x_scale, w)
@@ -52,9 +64,7 @@ def dequant_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     if w.shape != (k, n) or x_scale.shape != (m,):
         raise ValueError(f"dequant_matmul: shapes x_q {tuple(x_q.shape)}, "
                          f"x_scale {tuple(x_scale.shape)}, w {tuple(w.shape)}")
-    if k % _K_STEP or n % _N_STEP:
-        raise ValueError(f"dequant_matmul: K={k} must be a multiple of "
-                         f"{_K_STEP} and N={n} of {_N_STEP}")
+    _rules(m, k, n, w.dtype)
     w_nk = w.t().contiguous()
     scale = x_scale.to(w.dtype)
     for name, t, dt in (("x_q", x_q, torch.int8), ("x_scale", scale, w.dtype),

@@ -106,6 +106,25 @@ def multiply_attention_pool_reference(v: torch.Tensor, q: torch.Tensor,
     return pooled, att
 
 
+def _rules(objs: int, v_dim: int, hidden: int, q_dim: int,
+           dtype: torch.dtype) -> None:
+    name = "fused_multiply_attention_pool"
+    if not 1 <= objs <= _MAX_OBJS:
+        raise ValueError(f"{name}: N={objs} boxes, the kernel takes 1 to "
+                         f"{_MAX_OBJS}")
+    if v_dim % 8 or hidden % 8 or q_dim % 8:
+        raise ValueError(f"{name}: Dv={v_dim}, H={hidden} and Hq={q_dim} "
+                         "must be multiples of 8")
+    _build.check_dtype(name, "v", dtype, torch.bfloat16)
+
+
+def supports(batch: int, objs: int, v_dim: int, hidden: int, q_dim: int,
+             dtype: torch.dtype) -> bool:
+    """Whether the kernels take v [batch, objs, v_dim] of ``dtype`` with a
+    question of ``q_dim`` and an attention of width ``hidden``."""
+    return _build.holds(_rules, objs, v_dim, hidden, q_dim, dtype)
+
+
 def fused_multiply_attention_pool(v: torch.Tensor, q: torch.Tensor,
                                   wv: torch.Tensor, bv: torch.Tensor,
                                   wq: torch.Tensor, bq: torch.Tensor,
@@ -115,9 +134,9 @@ def fused_multiply_attention_pool(v: torch.Tensor, q: torch.Tensor,
     CPU tensors run :func:`multiply_attention_pool_reference`. CUDA tensors
     launch the kernels, which take bf16 ``v``, ``q``, ``wv`` and ``wq``,
     ``bv``, ``bq``, ``wl`` and ``bl`` in f32 or bf16, N up to 256, and Dv,
-    H and Hq multiples of 8; anything else raises. The kernels read the two
-    weights as [H, in] (torch's Linear layout): pass ``weight.t()`` and no
-    copy is made.
+    H and Hq multiples of 8 (:func:`supports`); anything else raises. The
+    kernels read the two weights as [H, in] (torch's Linear layout): pass
+    ``weight.t()`` and no copy is made.
     """
     if v.device.type == "cpu":
         return multiply_attention_pool_reference(v, q, wv, bv, wq, bq, wl, bl)
@@ -131,12 +150,7 @@ def fused_multiply_attention_pool(v: torch.Tensor, q: torch.Tensor,
             f"{name}: shapes v {tuple(v.shape)}, q {tuple(q.shape)}, wv "
             f"{tuple(wv.shape)}, bv {tuple(bv.shape)}, wq {tuple(wq.shape)}, "
             f"bq {tuple(bq.shape)}, wl {tuple(wl.shape)}, bl {tuple(bl.shape)}")
-    if not 1 <= objs <= _MAX_OBJS:
-        raise ValueError(f"{name}: N={objs} boxes, the kernel takes 1 to "
-                         f"{_MAX_OBJS}")
-    if v_dim % 8 or hidden % 8 or q_dim % 8:
-        raise ValueError(f"{name}: Dv={v_dim}, H={hidden} and Hq={q_dim} "
-                         "must be multiples of 8")
+    _rules(objs, v_dim, hidden, q_dim, v.dtype)
     wv_t, wq_t = wv.t().contiguous(), wq.t().contiguous()
     for arg, t in (("v", v), ("q", q), ("wv", wv_t), ("wq", wq_t)):
         _build.check_operand(name, arg, t, torch.bfloat16, v.device)

@@ -93,6 +93,23 @@ def gcn_chain_reference(out_self: torch.Tensor, proj: torch.Tensor,
     return torch.matmul(aa.to(dt).to(f32), o.to(dt).to(f32)).to(dt)
 
 
+def _rules(n: int, d: int, num_labels: int, dtype: torch.dtype) -> None:
+    if n != _OBJS or num_labels > _MAX_LABELS or d % _D_STEP:
+        raise ValueError(f"gcn_chain_fused: the kernel takes N={_OBJS}, D a "
+                         f"multiple of {_D_STEP} and at most {_MAX_LABELS} "
+                         f"labels; got N={n}, D={d} and {num_labels} labels")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gcn_chain_fused: out_self must be float32 or "
+                        f"bfloat16, got {dtype}")
+
+
+def supports(b: int, n: int, d: int, num_labels: int,
+             dtype: torch.dtype) -> bool:
+    """Whether the kernel takes b graphs of n boxes, d features of
+    ``dtype`` and ``num_labels`` labels."""
+    return _build.holds(_rules, n, d, num_labels, dtype)
+
+
 def gcn_chain_fused(out_self: torch.Tensor, proj: torch.Tensor,
                     alpha_raw: torch.Tensor, graph: torch.Tensor,
                     bias: torch.Tensor, num_labels: int = 12) -> torch.Tensor:
@@ -101,8 +118,8 @@ def gcn_chain_fused(out_self: torch.Tensor, proj: torch.Tensor,
 
     CPU tensors run :func:`gcn_chain_reference`. CUDA tensors launch the
     kernel, which takes bf16 or f32 (alpha_raw and bias are cast to that
-    dtype), an int32 graph, N = 36, D a multiple of 8, at most 16 labels and
-    16-byte aligned operands; anything else raises.
+    dtype), an int32 graph, N = 36, D a multiple of 8, at most 16 labels
+    (:func:`supports`) and 16-byte aligned operands; anything else raises.
     """
     if out_self.device.type == "cpu":
         return gcn_chain_reference(out_self, proj, alpha_raw, graph, bias,
@@ -114,14 +131,8 @@ def gcn_chain_fused(out_self: torch.Tensor, proj: torch.Tensor,
             f"gcn_chain_fused: shapes out_self {tuple(out_self.shape)}, proj "
             f"{tuple(proj.shape)}, alpha_raw {tuple(alpha_raw.shape)}, graph "
             f"{tuple(graph.shape)}, bias {tuple(bias.shape)}")
-    if n != _OBJS or num_labels > _MAX_LABELS or d % _D_STEP:
-        raise ValueError(f"gcn_chain_fused: the kernel takes N={_OBJS}, D a "
-                         f"multiple of {_D_STEP} and at most {_MAX_LABELS} "
-                         f"labels; got N={n}, D={d} and {num_labels} labels")
+    _rules(n, d, num_labels, out_self.dtype)
     dt = out_self.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gcn_chain_fused: out_self must be float32 or "
-                        f"bfloat16, got {dt}")
     alpha_raw, bias = alpha_raw.to(dt), bias.to(dt)
     for name, t, want in (("out_self", out_self, dt), ("proj", proj, dt),
                           ("alpha_raw", alpha_raw, dt),

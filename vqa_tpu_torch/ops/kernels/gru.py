@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from vqa_tpu_torch.ops.kernels.gru_v2 import (
-    gru_last_state_v2_reference, sequence)
+    gru_last_state_v2_reference, sequence, supports)
 
 
 def gru_last_state_reference(xi: torch.Tensor, wh: torch.Tensor,

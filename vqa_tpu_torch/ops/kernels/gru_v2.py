@@ -120,6 +120,26 @@ def launch_plan(device: torch.device, batch: int, hidden: int,
     return cluster, h16
 
 
+def sequence_rules(name: str, t_len: int, hidden: int, dtype: torch.dtype,
+                   operand: str = "xi") -> None:
+    """The sequence kernel's rules: at least one step, H a multiple of 32,
+    bf16 operands (``dtype`` is ``operand``'s). Raises ValueError or
+    TypeError."""
+    if t_len < 1:
+        raise ValueError(f"{name}: T={t_len}, the kernel needs a step")
+    if hidden % _CHUNK_J:
+        raise ValueError(f"{name}: hidden {hidden} is not a multiple of "
+                         f"{_CHUNK_J}")
+    _build.check_dtype(name, operand, dtype, torch.bfloat16)
+
+
+def supports(t_len: int, hidden: int, dtype: torch.dtype) -> bool:
+    """Whether the sequence kernel (``gru_last_state_v2``,
+    ``gru_last_state`` and ``gru_last_state_v3``) takes a GRU of ``t_len``
+    steps and width ``hidden`` whose inputs are ``dtype``, at any B."""
+    return _build.holds(sequence_rules, "gru_v2", t_len, hidden, dtype)
+
+
 def check_recurrent(name: str, batch: int, t_len: int, gates: int,
                     wh: torch.Tensor, bh: torch.Tensor,
                     device: torch.device) -> torch.Tensor:
@@ -131,9 +151,7 @@ def check_recurrent(name: str, batch: int, t_len: int, gates: int,
             or bh.shape != (gates,) or t_len < 1:
         raise ValueError(f"{name}: shapes [B={batch}, T={t_len}, 3H={gates}], "
                          f"wh {tuple(wh.shape)}, bh {tuple(bh.shape)}")
-    if hidden % _CHUNK_J:
-        raise ValueError(f"{name}: hidden {hidden} is not a multiple of "
-                         f"{_CHUNK_J}")
+    sequence_rules(name, t_len, hidden, wh.dtype, "wh")
     w_gk = wh.t().contiguous()
     for arg, t in (("wh", w_gk), ("bh", bh)):
         _build.check_operand(name, arg, t, torch.bfloat16, device)
@@ -160,10 +178,10 @@ def gru_last_state_v2(xi: torch.Tensor, wh: torch.Tensor,
     wh [H, 3H] and bias bh [3H].
 
     CPU tensors run :func:`gru_last_state_v2_reference`. CUDA tensors launch
-    the kernel, which takes bf16 operands, any B >= 1 and H a multiple of 32;
-    anything else raises. The kernel reads the weight gate-major ([3H, H],
-    torch's ``weight_hh`` layout): pass ``weight_hh.t()`` and no copy is
-    made.
+    the kernel, which takes bf16 operands, any B >= 1 and H a multiple of 32
+    (:func:`supports`); anything else raises. The kernel reads the weight
+    gate-major ([3H, H], torch's ``weight_hh`` layout): pass
+    ``weight_hh.t()`` and no copy is made.
     """
     if xi.device.type == "cpu":
         return gru_last_state_v2_reference(xi, wh, bh)

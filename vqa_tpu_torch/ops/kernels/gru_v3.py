@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from vqa_tpu_torch.ops.kernels import _build
 from vqa_tpu_torch.ops.kernels.gru_v2 import (
-    check_recurrent, gru_last_state_v2_reference, launch_plan)
+    check_recurrent, gru_last_state_v2_reference, launch_plan, supports)
 
 # TMA's 16-byte row pitch in bf16: emb and the input weight are zero-padded
 # along E to a multiple of it

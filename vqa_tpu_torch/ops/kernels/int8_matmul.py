@@ -62,6 +62,32 @@ def int8_matmul_dequant_3d_reference(x_q: torch.Tensor, x_scale: torch.Tensor,
     return y.reshape(b, g, -1)
 
 
+def _rules(kernel: str, k: int, n: int, xs_dtype: torch.dtype,
+           out_dtype: torch.dtype) -> None:
+    if k % _K_STEP or n % _N_STEP:
+        raise ValueError(f"{kernel}: K={k} must be a multiple of {_K_STEP} "
+                         f"and N={n} of {_N_STEP}")
+    if out_dtype not in _KINDS or xs_dtype not in _KINDS:
+        raise TypeError(f"{kernel}: out_dtype and x_scale must be float32 or "
+                        f"bfloat16, got {out_dtype} and {xs_dtype}")
+
+
+def supports(m: int, k: int, n: int, xs_dtype: torch.dtype,
+             out_dtype: torch.dtype) -> bool:
+    """Whether the 2-D entry takes x_q [m, k] times w_q [k, n] with
+    ``xs_dtype`` row scales and a ``out_dtype`` output."""
+    return _build.holds(_rules, "int8_matmul_dequant", k, n, xs_dtype,
+                        out_dtype)
+
+
+def supports_3d(b: int, g: int, k: int, n: int, xs_dtype: torch.dtype,
+                out_dtype: torch.dtype) -> bool:
+    """Whether the 3-D entry takes x_q [b, g, k]: the 2-D entry's rules on
+    its [b * g, k] view."""
+    return _build.holds(_rules, "int8_matmul_dequant_3d", k, n, xs_dtype,
+                        out_dtype)
+
+
 def _launch(kernel: str, x_q, x_scale, w_q, w_scale, bias, relu, out_dtype):
     m, k = x_q.shape
     n = w_q.shape[1]
@@ -72,12 +98,7 @@ def _launch(kernel: str, x_q, x_scale, w_q, w_scale, bias, relu, out_dtype):
             f"{tuple(x_scale.shape)}, w_q {tuple(w_q.shape)}, w_scale "
             f"{tuple(w_scale.shape)}"
             + (f", bias {tuple(bias.shape)}" if bias is not None else ""))
-    if k % _K_STEP or n % _N_STEP:
-        raise ValueError(f"{kernel}: K={k} must be a multiple of {_K_STEP} "
-                         f"and N={n} of {_N_STEP}")
-    if out_dtype not in _KINDS or x_scale.dtype not in _KINDS:
-        raise TypeError(f"{kernel}: out_dtype and x_scale must be float32 or "
-                        f"bfloat16, got {out_dtype} and {x_scale.dtype}")
+    _rules(kernel, k, n, x_scale.dtype, out_dtype)
     # the kernel reads the weight K-major as [N, K] (8-bit wgmma takes only
     # K-major operands); a w_q from quantize_weight_per_col is already the
     # transpose of one
@@ -110,7 +131,7 @@ def int8_matmul_dequant(x_q: torch.Tensor, x_scale: torch.Tensor,
 
     CPU tensors run :func:`int8_matmul_dequant_reference`. CUDA tensors
     launch the kernel, which masks any M and takes K a multiple of 32 and
-    N of 8; anything else raises.
+    N of 8 (:func:`supports`); anything else raises.
     """
     if x_q.device.type == "cpu":
         return int8_matmul_dequant_reference(x_q, x_scale, w_q, w_scale,

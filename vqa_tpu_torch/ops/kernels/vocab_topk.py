@@ -88,6 +88,23 @@ def vocab_topk_lse_reference(h: torch.Tensor, w: torch.Tensor,
     return vals, idx.to(torch.int32), lse
 
 
+def _rules(hidden: int, vocab: int, k: int, dtype: torch.dtype) -> None:
+    if not 1 <= k <= min(_MAX_K, vocab):
+        raise ValueError(f"vocab_topk_lse: k={k} must lie in [1, "
+                         f"{min(_MAX_K, vocab)}]")
+    if hidden % _H_STEP:
+        raise ValueError(f"vocab_topk_lse: H={hidden} must be a multiple of "
+                         f"{_H_STEP}")
+    _build.check_dtype("vocab_topk_lse", "h", dtype, torch.bfloat16)
+
+
+def supports(rows: int, hidden: int, vocab: int, k: int,
+             dtype: torch.dtype) -> bool:
+    """Whether the kernel takes h [rows, hidden] of ``dtype`` against a
+    vocabulary of ``vocab`` rows for the top ``k``."""
+    return _build.holds(_rules, hidden, vocab, k, dtype)
+
+
 def vocab_topk_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k values [R, k] f32, their indices [R, k] int32 and the logsumexp
@@ -96,7 +113,8 @@ def vocab_topk_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int
 
     CPU tensors run :func:`vocab_topk_lse_reference`. CUDA tensors launch
     the kernel, which takes bf16 operands, 1 <= k <= 8, H a multiple of 8
-    and V >= k, and masks ragged R, V and H; anything else raises.
+    and V >= k (:func:`supports`), and masks ragged R, V and H; anything
+    else raises.
     """
     if h.device.type == "cpu":
         return vocab_topk_lse_reference(h, w, b, k)
@@ -105,12 +123,7 @@ def vocab_topk_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int
     if w.shape != (vocab, hidden) or b.shape != (vocab,):
         raise ValueError(f"vocab_topk_lse: shapes h {tuple(h.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
-    if not 1 <= k <= min(_MAX_K, vocab):
-        raise ValueError(f"vocab_topk_lse: k={k} must lie in [1, "
-                         f"{min(_MAX_K, vocab)}]")
-    if hidden % _H_STEP:
-        raise ValueError(f"vocab_topk_lse: H={hidden} must be a multiple of "
-                         f"{_H_STEP}")
+    _rules(hidden, vocab, k, h.dtype)
     for name, t in (("h", h), ("w", w), ("b", b)):
         _build.check_operand("vocab_topk_lse", name, t, torch.bfloat16,
                              h.device)

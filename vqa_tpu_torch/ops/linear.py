@@ -67,7 +67,8 @@ class WNDense(nn.Module):
         in the scale's dtype. With ``int8_gemm`` it goes through the int8
         GEMM (:meth:`int8_forward`, ``use_kernel`` picking the 3-D kernel
         entry); else the product is ``(x * x_scale) @ W.T``, through the
-        dequant-GEMM kernel when ``use_kernel``, else its plain version."""
+        dequant-GEMM kernel when ``use_kernel`` and the kernel takes the
+        shape (``feed_gemm.supports``), else its plain version."""
         if x.dtype == torch.int8:
             if x_scale is None:
                 raise ValueError("an int8 input needs x_scale")
@@ -75,9 +76,12 @@ class WNDense(nn.Module):
                 return self.int8_forward(x, x_scale, use_pallas=use_kernel,
                                          relu=relu)
             w = self.weight(x_scale.dtype)
-            gemm = (feed_gemm.dequant_matmul if use_kernel
+            x2 = x.reshape(-1, x.shape[-1])
+            gemm = (feed_gemm.dequant_matmul
+                    if use_kernel and feed_gemm.supports(*x2.shape, w.shape[0],
+                                                         w.dtype)
                     else feed_gemm.dequant_matmul_reference)
-            y = gemm(x.reshape(-1, x.shape[-1]), x_scale.reshape(-1), w.t())
+            y = gemm(x2, x_scale.reshape(-1), w.t())
             y = y.reshape(*x.shape[:-1], -1)
         else:
             y = torch.matmul(x, self.weight(x.dtype).t())

@@ -11,8 +11,10 @@ scales, the bias and the ReLU go into the GEMM's epilogue,
 in JAX's order. Both of JAX's routes (the fused Pallas kernel and XLA's
 int8 dot, bit-identical by construction) run the same hand-written kernel
 here: the 3-D entry for a ``use_pallas`` call on [B, G, K] rows, the 2-D
-entry on the flattened rows otherwise, as XLA's route flattens them. On CPU
-tensors the kernel's plain version runs.
+entry on the flattened rows otherwise, as XLA's route flattens them, and
+the kernel's plain version where the kernel does not take the shape
+(``int8_matmul.supports_3d`` / ``supports``: K a multiple of 32, N of 8),
+as JAX falls back to XLA's dot. On CPU tensors the plain version runs.
 """
 
 from __future__ import annotations
@@ -67,11 +69,15 @@ def int8_dot(x_q: torch.Tensor, x_scale: torch.Tensor, kernel: torch.Tensor,
     if bias is not None:
         bias = bias.to(out_dtype)
     kw = dict(bias=bias, relu=relu, out_dtype=out_dtype)
-    if use_pallas and x_q.dim() == 3:
+    n, dts = w_q.shape[1], (x_scale.dtype, out_dtype)
+    if use_pallas and x_q.dim() == 3 \
+            and int8_matmul.supports_3d(*x_q.shape, n, *dts):
         return int8_matmul.int8_matmul_dequant_3d(x_q, x_scale, w_q,
                                                   w_scale, **kw)
     lead, k = x_q.shape[:-1], x_q.shape[-1]
-    y = int8_matmul.int8_matmul_dequant(x_q.reshape(-1, k),
-                                        x_scale.reshape(-1), w_q, w_scale,
-                                        **kw)
+    x2 = x_q.reshape(-1, k)
+    gemm = (int8_matmul.int8_matmul_dequant
+            if int8_matmul.supports(*x2.shape, n, *dts)
+            else int8_matmul.int8_matmul_dequant_reference)
+    y = gemm(x2, x_scale.reshape(-1), w_q, w_scale, **kw)
     return y.reshape(*lead, y.shape[-1])

@@ -155,8 +155,9 @@ class SentenceEmbedding(nn.Module):
     step-0 output) (reference modules.py:98-163).
 
     ``use_pallas`` routes inference to the gru_v2 kernel on the JAX
-    package's eligibility: GRU, 1 layer, unidirectional, bf16, B % 8 == 0.
-    Every other configuration runs the plain scan.
+    package's eligibility (GRU, 1 layer, unidirectional, bf16, B % 8 == 0)
+    where the kernel takes the width (``gru_v2.supports``: H a multiple of
+    32). Every other configuration runs the plain scan.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, rnn_layer: int = 1,
@@ -180,7 +181,8 @@ class SentenceEmbedding(nn.Module):
         return (self.use_pallas and not self.training
                 and self.rnn_type == "GRU" and self.rnn_layer == 1
                 and not self.bidirect and x.dtype == torch.bfloat16
-                and x.shape[0] % 8 == 0)
+                and x.shape[0] % 8 == 0
+                and gru_v2.supports(x.shape[1], self.hidden_dim, x.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, T, in] -> [B, H * ndir]."""

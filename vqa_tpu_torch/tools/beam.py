@@ -45,8 +45,10 @@ def make_beam_search(model, k: int, c_len: int, start_id: int, end_id: int,
     ``fused_vocab``: the vocab head of every step goes through
     :func:`vocab_topk.vocab_topk_lse` (GEMM + exact running top-k + online
     logsumexp, the [B*k, ntoken] logits never formed), which computes in
-    f32 where the plain head rounds its logits to the activation dtype.
-    The head must be a plain ``{weight, bias}`` Linear.
+    f32 where the plain head rounds its logits to the activation dtype;
+    where the kernel does not take the shape (``vocab_topk.supports``), its
+    plain version computes the same f32 numbers. The head must be a plain
+    ``{weight, bias}`` Linear.
     """
     generator = model.generator
     if generator is None:
@@ -87,8 +89,12 @@ def make_beam_search(model, k: int, c_len: int, start_id: int, end_id: int,
                                          att_cache=att_cache, beam=k,
                                          return_features=fused_vocab)
             if fused_vocab:
-                top_val, top_word, lse = vocab_topk.vocab_topk_lse(
-                    out, head.weight.to(out.dtype), head.bias, k)
+                w = head.weight.to(out.dtype)
+                fused = (vocab_topk.vocab_topk_lse
+                         if vocab_topk.supports(*out.shape, w.shape[0], k,
+                                                out.dtype)
+                         else vocab_topk.vocab_topk_lse_reference)
+                top_val, top_word, lse = fused(out, w, head.bias, k)
                 top_word = top_word.long()
             else:
                 top_val, top_word = vocab_topk.topk_first(out, k)

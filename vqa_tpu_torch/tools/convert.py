@@ -14,7 +14,12 @@ whose keys are the reference's torch names, which the port uses too:
   (transposed) / ``bias_ih`` / ... on the cell itself, as ``nn.GRUCell``;
 - the decoders' plain Linear ``{w [in, out], b}`` -> ``weight`` [out, in],
   ``bias``;
-- WordEmbedding ``table`` -> ``weight``;
+- WordEmbedding ``table`` -> ``weight`` (the base, relation and caption
+  encoders alike); a frozen GloVe table is a constant in the JAX package
+  and a non-persistent buffer in the port, so neither side has its key;
+- the ``base-cap`` head's ``c_rnn`` (a SentenceEmbedding) and ``c_net``
+  (an FCNet) by the rules above: ``predictor.c_rnn.rnn.weight_ih_l0``,
+  ``predictor.c_net.main.0.weight_v``, ...;
 - the MTL weights ``log_vars`` as they are;
 - the GCN convs ``*_encoder.conv{i}`` of the relation encoder: the
   bias-free direction weights ``w{j}`` [in, out] -> ``w{j}.weight`` [out,

@@ -7,7 +7,10 @@ active, its gradients, the clip and the grouped Adamax update
 ``torch.autocast``: the f32 master parameters are cast to ``compute_dtype``
 inside the loss (``torch.func.functional_call``), so autograd returns f32
 gradients and the optimizer moments stay f32; the float inputs of the batch
-are cast too, and the losses upcast to f32 (``models/wrapper.py``).
+are cast too, and so are the float buffers (a frozen GloVe table, whose
+rows then enter the model as a learned table's do; the JAX package keeps
+that constant in f32), and the losses upcast to f32
+(``models/wrapper.py``).
 
 Each step's dropout draws from a seed that is a function of (run seed,
 step), as ``fold_in(rng, step)``: torch's generators for the encoder's and
@@ -81,12 +84,13 @@ def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
     model.train()
     torch_seed, scan_seed = step_seeds(run_seed, step)
     params = {"model." + n: p for n, p in model.named_parameters()}
+    buffers = {"model." + n: b for n, b in model.named_buffers()}
     dev = next(iter(params.values())).device
     with torch.random.fork_rng(
             devices=[dev.index or 0] if dev.type == "cuda" else []):
         torch.manual_seed(torch_seed)
         loss, writes = functional_call(
-            _Loss(model), _cast_floats(params, compute_dtype),
+            _Loss(model), _cast_floats({**params, **buffers}, compute_dtype),
             (_cast_floats(batch, compute_dtype), scan_seed))
         for p in model.parameters():
             p.grad = None

@@ -298,4 +298,4 @@ def train_select(*args, **kwargs):
     """The max-relevance (Q-Relevant) training loop is not ported."""
     raise NotImplementedError(
         "train_select (--train_strategy select) is not ported yet "
-        "(ROADMAP.md Queue 1 item 7)")
+        "(ROADMAP.md Queue 1, Q-Relevant)")
