@@ -140,8 +140,25 @@ Phases, each of which raises (exit code 1) on failure:
    launch; best beams compared with plain versions); both steps timed at
    B=4096 with their peak memory; then ``vqa_tpu_torch.main.main`` on
    config 5's flags trains one epoch and validates in ``--mode val``
-   (gcn_chain_fused must launch), with each mode's wall time. Each
-   phase's wall time is logged, and the total.
+   (gcn_chain_fused must launch), with each mode's wall time;
+15. Q-Relevant: the full-width q-cap model (bf16, ``use_pallas``) serves
+   4 requests of B=512 from a synthetic ``select`` root on the int8 feed
+   (exactly one gru_v2 and one dequant_matmul a request, no pool_int8; its
+   outputs and its logits before the sigmoid within 3% of the same model on
+   plain versions), timed at B=4096 with its peak memory; the max-relevance
+   step (q-cap, BUTD, ``use_mtl``, dropout 0.5 / 0.2, bf16 over f32
+   masters, ``use_pallas``) trains 4 steps of B=512 from
+   ``Loader(batch_method="get_batch_all")`` and one batch 10 more times
+   (finite losses, the repeated loss falls, no kernel launch: training
+   runs no inference kernel and its caption loss is the teacher-forced
+   forward), one step's loss and gradients against plain versions in f32
+   and bf16 as in phase 8, timed at B=2048 (B=1024 where the B=2048
+   step's peak passes 40 GiB) with its peak memory; then CONFIGS.md config
+   4 as written (``base-cap``, the base decoder, ``--train_strategy
+   select``, the GloVe file) and its q-cap variant through
+   ``vqa_tpu_torch.main.main``: one epoch of 2 steps of B=512, then
+   ``--mode val``, with each mode's wall time. Each phase's wall time is
+   logged, and the total.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
@@ -292,6 +309,24 @@ LSTM_DIMS = dict(REGAT_DIMS, decoder_type="butd", decoder_hidden_dim=HIDDEN, c_l
 LSTM_GRAD_PREFIXES = GRAD_PREFIXES + ("encoder.spatial_encoder.conv0.w",
                                       "encoder.spatial_encoder.conv0.label_bias")
 REGAT_CLI_IMAGES, REGAT_CLI_TRAIN_Q, REGAT_CLI_VAL_Q = 64, 1024, 512
+# Q-Relevant (CONFIGS.md config 4 and its q-cap head) at full width: q-cap
+# serving of B=512 requests on the int8 feed (bf16, use_pallas; the
+# question GRU and the v-projection launch once a request, pool_int8 never:
+# q-cap reads the dense attended features), timed at B=4096; the
+# max-relevance step of q-cap with the BUTD decoder and use_mtl on the
+# all-captions feed's Loader batches of B=512 (N_CAP candidate captions a
+# question, dense features as the entry point feeds them; no kernel
+# launches: training runs none of the inference kernels and the caption
+# loss is the teacher-forced forward), timed at B=2048 unless its peak
+# memory passes SELECT_PEAK_LIMIT, then at B=1024; config 4 and its q-cap
+# variant through the entry point on CLI_TRAIN_Q / CLI_VAL_Q questions
+QCAP_DIMS = dict(encoder_type="base", predictor_type="q-cap", decoder_type="none",
+                 ntoken=NTOKEN, v_dim=V_DIM, embed_dim=EMBED, hidden_dim=HIDDEN,
+                 ans_dim=ANS, c_len=C_LEN, att_type="new")
+SELECT_DIMS = dict(QCAP_DIMS, decoder_type="butd", decoder_hidden_dim=HIDDEN,
+                   use_mtl=True)   # dropout 0.5 / 0.2, the defaults
+N_CAP, QCAP_TIME_BATCH, SELECT_TIME_BATCH = 5, 4096, 2048
+SELECT_PEAK_LIMIT = 40 * 2 ** 30
 
 # the card's peaks for the bound of each kernel: HBM3 bytes per ms, dense
 # bf16 and int8 tensor-core and f32 (non-tensor) operations per ms
@@ -538,6 +573,7 @@ def main() -> int:
     from vqa_tpu_torch.tools.beam import make_beam_search, tokens_to_captions
     from vqa_tpu_torch.training import train as train_loop
     from vqa_tpu_torch.training.optim import make_optimizer
+    from vqa_tpu_torch.training.select import get_select_loss, make_train_select_step
     from vqa_tpu_torch.training.state import (
         TrainState, backward_step, make_train_step)
     from vqa_tpu_torch.data.dataset import set_dataset
@@ -1860,9 +1896,11 @@ def main() -> int:
 
     def device_batch(b):
         """A Loader batch's model inputs on the card, token ids as int64."""
-        keys = ("q", "c", "cap_len", "a", "img_q", "img_scale", "graph")
+        keys = ("q", "c", "cap_len", "c_all", "cap_len_all", "a", "img", "img_q",
+                "img_scale", "graph")
+        tokens = ("q", "c", "cap_len", "c_all", "cap_len_all")
         return {k: torch.from_numpy(b[k]).to(dev).to(
-            torch.long if k in ("q", "c", "cap_len") else None) for k in keys if k in b}
+            torch.long if k in tokens else None) for k in keys if k in b}
 
     with tempfile.TemporaryDirectory() as root:
         make_synthetic_root(root, split="train2014", num_images=64,
@@ -2030,6 +2068,245 @@ def main() -> int:
     log(f"time cli config 5: --mode train {cli_wall['regat_train']:.2f} s wall (model "
         f"build, data, {steps} steps of B={TRAIN_BATCH}, validation of {REGAT_CLI_VAL_Q} "
         f"questions, checkpoints), --mode val {cli_wall['regat_val']:.2f} s wall [{card}]")
+
+    # -- 15. Q-Relevant: q-cap serving, the select step, config 4 ----------
+    phase("15 Q-Relevant")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        made = make_synthetic_root(root, split="train2014", num_images=64,
+                                   num_questions=TRAIN_BATCH * 8, num_objs=OBJS, v_dim=V_DIM,
+                                   vocab_size=NTOKEN, num_answers=ANS, q_len=Q_LEN,
+                                   c_len=C_LEN, seed=12)
+        where = (made["annot"], made["feature_root"], ANS)
+        # the serving feed: one selected caption a question, int8 features
+        serve_set = set_dataset(*where, caption_id_path=made["select_path"], is_train=True,
+                                dataset_type="select", feature_mode="int8")
+        host_serve = list(itertools.islice(Loader(serve_set, SERVE_BATCH, drop_last=True),
+                                           SERVE_REQUESTS))
+        # the max-relevance feed: every caption of a question, dense features
+        all_set = set_dataset(*where, caption_id_path=made["select_path"], is_train=True,
+                              dataset_type="all")
+        host_select = list(itertools.islice(
+            Loader(all_set, TRAIN_BATCH, shuffle=True, drop_last=True,
+                   batch_method="get_batch_all", length=len(all_set.questions)),
+            TRAIN_STEPS))
+    require(len(host_serve) == SERVE_REQUESTS and len(host_select) == TRAIN_STEPS,
+            "the Q-Relevant loaders gave too few batches")
+    qcap_requests = [device_batch(b) for b in host_serve]
+    for r in qcap_requests:
+        r["img_scale"] = r["img_scale"].to(bf16)
+    select_batches = [device_batch(b) for b in host_select]
+    require(all(b["c_all"].shape == (TRAIN_BATCH, N_CAP, C_LEN) for b in select_batches),
+            "the all-captions feed's candidates are not [B, 5, c_len]")
+
+    # (a) q-cap serving on the int8 feed
+    qcap = set_model(**QCAP_DIMS, use_pallas=True, generator=torch.Generator().manual_seed(13))
+    qcap = qcap.to(device=dev, dtype=bf16).eval()
+    with torch.inference_mode():
+        _build.reset_launches()
+        served = [qcap.forward_vqa(r) for r in qcap_requests]
+        torch.cuda.synchronize()
+        qcap_launches = dict(_build.LAUNCHES)
+        log(f"q-cap serve: {SERVE_REQUESTS} requests of B={SERVE_BATCH} (int8 feed, one "
+            f"selected caption each) through VQAModel.forward_vqa; kernel launches "
+            f"{qcap_launches}")
+        for name, per_request in (("gru_v2", 1), ("dequant_matmul", 1), ("pool_int8", 0)):
+            require(qcap_launches[name] == per_request * SERVE_REQUESTS,
+                    f"q-cap serving launched {name} {qcap_launches[name]} times, not "
+                    f"{per_request} a request")
+        for score, label, target in served:
+            require(score.shape == (SERVE_BATCH, ANS) and label.shape == (SERVE_BATCH,)
+                    and bool(torch.isfinite(score).all()), "q-cap forward_vqa outputs")
+        # the head's output is sigmoid(cls_net(...)); at these random weights
+        # cls_net's logits are ~1e-3, so every bf16 probability rounds to
+        # 0.5 and holds nothing to compare: the logits before the sigmoid
+        # are held too
+        logits = []
+        hook = qcap.predictor.cls_net.register_forward_hook(
+            lambda mod, inp, out: logits.append(out.float()))
+
+        def outputs():
+            logits.clear()
+            probs = torch.cat([qcap(r)[0] for r in qcap_requests]).float()
+            return probs, torch.cat(logits)
+
+        got, got_logits = outputs()
+        with ExitStack() as stack:
+            plain_kernels(stack, *kernel_modules)
+            want, want_logits = outputs()
+        hook.remove()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        rel_logits = ((got_logits - want_logits).abs().max()
+                      / want_logits.abs().max()).item()
+        log(f"q-cap serve: against the same model on plain versions, max abs err / max "
+            f"|value| of the outputs (sigmoid probabilities, range "
+            f"[{want.min().item():.4f}, {want.max().item():.4f}]) {rel:.3g} and of the "
+            f"logits before the sigmoid (max |logit| {want_logits.abs().max().item():.3g}) "
+            f"{rel_logits:.3g} (tolerance {LOGIT_REL_TOL:g}); argmax agreement "
+            f"{(got_logits.argmax(1) == want_logits.argmax(1)).float().mean().item():.4f}")
+        require(bool(torch.isfinite(got).all() and torch.isfinite(got_logits).all())
+                and rel <= LOGIT_REL_TOL and rel_logits <= LOGIT_REL_TOL,
+                "q-cap outputs disagree with the plain versions")
+        x_q, scale = int8_feed(QCAP_TIME_BATCH * OBJS, V_DIM)
+        big = {"q": torch.randint(0, NTOKEN, (QCAP_TIME_BATCH, Q_LEN), device=dev,
+                                  generator=gen),
+               "img_q": x_q.view(QCAP_TIME_BATCH, OBJS, V_DIM),
+               "img_scale": scale.view(QCAP_TIME_BATCH, OBJS),
+               "c": torch.randint(0, NTOKEN - 4, (QCAP_TIME_BATCH, C_LEN), device=dev,
+                                  generator=gen),
+               "cap_len": torch.randint(2, C_LEN + 1, (QCAP_TIME_BATCH,), device=dev,
+                                        generator=gen)}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = (time_ms(lambda: qcap(big), 3) + time_ms(lambda: qcap(big), 3)) / 2
+        peak = torch.cuda.max_memory_allocated()
+        log(f"time q-cap forward B={QCAP_TIME_BATCH} int8 feed, bf16, use_pallas: {ms:.3f} ms "
+            f"({QCAP_TIME_BATCH / ms * 1e3:.1f} questions/s); peak memory allocated "
+            f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} above the "
+            f"{base / 2 ** 30:.2f} held before) [{card}]")
+    del qcap, served, got, want, got_logits, want_logits, big, x_q, scale
+
+    # (b) the max-relevance step: q-cap, BUTD, use_mtl, bf16 over f32 masters
+    sel_model = set_model(**SELECT_DIMS, use_pallas=True,
+                          generator=torch.Generator().manual_seed(14))
+    sel_state = TrainState(sel_model, make_optimizer(sel_model, lr=TRAIN_LR,
+                                                     max_norm=TRAIN_CLIP), seed=RUN_SEED)
+    sel_step = make_train_select_step(sel_model, sel_state.optimizer, compute_dtype=bf16)
+    _build.reset_launches()
+    metrics = [sel_step(sel_state, b) for b in select_batches]
+    repeated = [sel_step(sel_state, select_batches[0])["loss"] for _ in range(REPEAT_STEPS)]
+    torch.cuda.synchronize()
+    select_launches = dict(_build.LAUNCHES)
+    losses = [m["loss"].item() for m in metrics]
+    repeated = [x.item() for x in repeated]
+    log(f"select train: {TRAIN_STEPS} Loader steps of B={TRAIN_BATCH} questions x {N_CAP} "
+        f"candidate captions through make_train_select_step (q-cap, BUTD, use_mtl, dropout "
+        f"0.5 / 0.2, use_pallas, bf16 over f32 masters): losses "
+        f"{[round(x, 4) for x in losses]}, VQA {[round(m['train/loss'].item(), 4) for m in metrics]}"
+        f", caption {[round(m['train/cap/loss'].item(), 4) for m in metrics]}; one batch "
+        f"{REPEAT_STEPS} more times: {[round(x, 4) for x in repeated]}; kernel launches "
+        f"{select_launches}")
+    require(all(map(math.isfinite, losses + repeated)), "non-finite select training loss")
+    require(repeated[-1] < repeated[0], "the repeated select batch's loss did not fall")
+    require(not any(select_launches.values()),
+            f"the select step launched kernels: {select_launches}")
+
+    def select_grads(dtype):
+        out = backward_step(sel_model, select_batches[1], RUN_SEED, 0, dtype,
+                            loss_fn=get_select_loss)
+        # the attention linears' biases only shift logits under a softmax
+        return out["loss"].item(), {n: p.grad.detach().clone()
+                                    for n, p in sel_model.named_parameters()
+                                    if not n.endswith("attention.linear.bias")}
+
+    for dtype, tol in ((None, GRAD_F32_TOL), (bf16, GRAD_BF16_TOL)):
+        label = "bf16" if dtype is bf16 else "f32"
+        _build.reset_launches()
+        k_loss, k_grads = select_grads(dtype)
+        with ExitStack() as stack:
+            plain_kernels(stack, *kernel_modules)
+            p_loss, p_grads = select_grads(dtype)
+        require(not any(_build.LAUNCHES.values()), "a select step launched a kernel")
+        rel = {n: ((k_grads[n] - p_grads[n]).abs().max()
+                   / p_grads[n].abs().max().clamp_min(1e-30)).item() for n in p_grads}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+        log(f"select train: {label} step on B={TRAIN_BATCH}, use_pallas against plain "
+            f"versions: loss {k_loss:.6f} vs {p_loss:.6f} (rel {loss_rel:.3g}); worst max "
+            f"|grad diff| / max |plain grad| over {len(rel)} parameters {worst} "
+            f"{rel[worst]:.3g} (tolerance {tol:g})")
+        require(loss_rel <= tol and rel[worst] <= tol,
+                f"the {label} select step disagrees with the plain versions")
+    del k_grads, p_grads
+
+    # the step at B=2048 (10240 candidate rows), with its optimizer update
+    def select_batch(batch):
+        return {"img": torch.randn(batch, OBJS, V_DIM, device=dev, generator=gen),
+                "q": torch.randint(0, NTOKEN, (batch, Q_LEN), device=dev, generator=gen),
+                "a": (torch.randint(0, 4, (batch, ANS), device=dev, generator=gen)
+                      * (torch.rand(batch, ANS, device=dev, generator=gen) < 2e-3)) / 3.0,
+                "c_all": torch.randint(0, NTOKEN - 4, (batch, N_CAP, C_LEN), device=dev,
+                                       generator=gen),
+                "cap_len_all": torch.randint(2, C_LEN + 1, (batch, N_CAP), device=dev,
+                                             generator=gen)}
+
+    sel_batch_size = SELECT_TIME_BATCH
+    big = select_batch(sel_batch_size)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sel_step(sel_state, big)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if peak > SELECT_PEAK_LIMIT:
+        log(f"select train: the B={sel_batch_size} step's peak {peak / 2 ** 30:.2f} GiB "
+            f"passes {SELECT_PEAK_LIMIT / 2 ** 30:.0f} GiB: timing B={sel_batch_size // 2}")
+        sel_batch_size //= 2
+        del big
+        big = select_batch(sel_batch_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sel_step(sel_state, big)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    ms = (time_ms(lambda: sel_step(sel_state, big), 2)
+          + time_ms(lambda: sel_step(sel_state, big), 2)) / 2
+    log(f"time select train step B={sel_batch_size} ({sel_batch_size * N_CAP} candidate "
+        f"rows; q-cap, BUTD, use_mtl, dense f32 feed, bf16 over f32 masters, with the "
+        f"Adamax update): {ms:.2f} ms ({sel_batch_size / ms * 1e3:.1f} samples/s); peak "
+        f"memory allocated {peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} above "
+        f"the {base / 2 ** 30:.2f} held before the step) [{card}]")
+    del sel_model, sel_state, sel_step, big, select_batches, metrics
+    torch.cuda.empty_cache()
+
+    # (c) config 4 as CONFIGS.md writes it, and its q-cap variant, through
+    # the entry point: one epoch of a few B=512 steps, then --mode val
+    with tempfile.TemporaryDirectory() as work, ExitStack() as stack:
+        roots = [make_synthetic_root(work, split=split, num_images=n_img,
+                                     num_questions=n_q, num_objs=OBJS, v_dim=V_DIM,
+                                     vocab_size=NTOKEN, num_answers=ANS, q_len=Q_LEN,
+                                     c_len=C_LEN, seed=seed)
+                 for split, n_img, n_q, seed in (("train2014", CLI_IMAGES, CLI_TRAIN_Q, 15),
+                                                 ("val2014", CLI_IMAGES // 2, CLI_VAL_Q, 16))]
+        root = roots[0]
+        glove = os.path.join(work, "glove.6B.300d.txt")
+        write_glove(glove, [w for w in Vocab.load(root["vocab_path"]).words
+                            if w not in Vocab.SPECIALS], EMBED, seed=6)
+        argv = ["--vocab_path", root["vocab_path"], "--ans_path", root["ans_path"],
+                "--load_path", root["annot"], "--feature_path", root["feature_root"],
+                "--pretrained_embed_path", glove, "--encoder_type", "base",
+                "--decoder_type", "base", "--train_strategy", "select",
+                "--select_path", root["select_path"], "--use_pallas", "1",
+                "--train_dtype", "bfloat16", "--embed_dim", str(EMBED),
+                "--hidden_dim", str(HIDDEN), "--decoder_hidden_dim", str(HIDDEN),
+                "--v_dim", str(V_DIM), "--c_len", str(C_LEN), "--batch_size", str(TRAIN_BATCH),
+                "--batches", str(CLI_STEPS), "--seed", str(RUN_SEED)]
+        os.chdir(work)
+        stack.callback(os.chdir, here)
+        for head in ("base-cap", "q-cap"):
+            flags = argv + ["--predictor_type", head, "--comment", f"qrel_{head}"]
+            out = os.path.join(work, "checkpoint", f"qrel_{head}")
+            run_mode(f"config4_{head}_train", flags + ["--mode", "train", "--epoches", "1"])
+            saved = torch.load(os.path.join(out, "epoch_0.ckpt"), weights_only=True)
+            require(saved["step"] == CLI_STEPS,
+                    f"config 4 ({head}): epoch_0.ckpt at step {saved['step']}")
+            require(any(k.startswith("predictor.caption_embedding.") for k in saved["model"])
+                    == (head == "q-cap"), f"config 4 ({head}): the checkpoint's head")
+            require(not any("embedding.weight" in k and k.startswith("encoder.")
+                            for k in saved["model"]),
+                    f"config 4 ({head}): the frozen GloVe table went into the checkpoint")
+            os.remove(os.path.join(out, "valid", "scores.npy"))
+            run_mode(f"config4_{head}_val", flags + ["--mode", "val"])
+            scores = np.load(os.path.join(out, "valid", "scores.npy"))
+            require(scores.shape == (CLI_VAL_Q,) and np.isfinite(scores).all(),
+                    f"config 4 ({head}): --mode val scored {scores.shape} questions")
+            log(f"time cli config 4 ({head}, --train_strategy select): --mode train "
+                f"{cli_wall[f'config4_{head}_train']:.2f} s wall (model build, data, "
+                f"{CLI_STEPS} steps of B={TRAIN_BATCH} x {N_CAP} captions, validation of "
+                f"{CLI_VAL_Q} questions, checkpoints), --mode val "
+                f"{cli_wall[f'config4_{head}_val']:.2f} s wall, val score "
+                f"{float(scores.mean()):.4f} [{card}]")
     phase("end")
     log(f"total wall time {time.monotonic() - t_start:.1f} s")
 
@@ -2037,7 +2314,8 @@ def main() -> int:
              "regat": regat_launches, "regat_no_int8": bf16_launches,
              "serve_h1000": h1000_launches, "train_h500": h500_launches,
              "regat_train": regat_train_launches, "gcn_lstm_train": lstm_train_launches,
-             "gcn_lstm_decode": lstm_dec_launches,
+             "gcn_lstm_decode": lstm_dec_launches, "qcap_serve": qcap_launches,
+             "select_train": select_launches,
              **{f"cli_{k}": v for k, v in cli_launches.items()}, "cli": cli_total}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
                 "launches": paths[MAIN_PATH[name]][name],

@@ -364,8 +364,10 @@ def test_cli_mtl_train_resume_and_decode(workdir):
 
 
 def test_cli_needs_a_card_or_device_cpu(workdir, tmp_path, monkeypatch):
-    """Without CUDA and without --device cpu the entry point raises; the
-    options the port does not hold raise NotImplementedError."""
+    """Without CUDA and without --device cpu the entry point raises, the
+    max-relevance strategy (--train_strategy select) included; the option
+    the port does not hold (--n_model_shards 2) raises
+    NotImplementedError."""
     _, root = workdir
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -373,8 +375,9 @@ def test_cli_needs_a_card_or_device_cpu(workdir, tmp_path, monkeypatch):
     for device in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="cpu"):
             port_main.main(common_args(root, flags, device))
-    argv = common_args(root, flags)
-    for extra, what in ((["--n_model_shards", "2"], "n_model_shards"),
-                        (["--train_strategy", "select"], "train_select")):
-        with pytest.raises(NotImplementedError, match=what):
-            port_main.main(argv + extra)
+    select = ["--mode", "train", "--comment", "nocard", "--train_strategy",
+              "select", "--predictor_type", "q-cap", "--decoder_type", "base"]
+    with pytest.raises(RuntimeError, match="cpu"):
+        port_main.main(common_args(root, select, None))
+    with pytest.raises(NotImplementedError, match="n_model_shards"):
+        port_main.main(common_args(root, flags) + ["--n_model_shards", "2"])

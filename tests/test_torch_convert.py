@@ -64,12 +64,14 @@ def test_convert_round_trips_and_models_agree(rng, att_type, cls_layer,
 
 @pytest.mark.parametrize("decoder_type,predictor_type,rnn_type,use_mtl", [
     ("butd", "none", "GRU", False), ("base", "none", "LSTM", False),
-    ("butd", "base", "GRU", True)])
+    ("butd", "base", "GRU", True), ("base", "q-cap", "GRU", True)])
 def test_convert_round_trips_caption_models(rng, decoder_type, predictor_type,
                                             rnn_type, use_mtl):
     """Decoder cells (``wi``/``bi``/``wh``/``bh`` with no layer suffix),
-    the plain vocab heads ``{w, b}`` and the MTL ``log_vars``; the
-    teacher-forced caption forwards agree."""
+    the plain vocab heads ``{w, b}``, the MTL ``log_vars`` and the q-cap
+    head (LReLUNets' lone ``w``, the caption embedding's two RNNs); the
+    teacher-forced caption forwards agree, and so do the q-cap head's
+    predictions."""
     c_len = 5
     dims = dict(encoder_type="base", predictor_type=predictor_type,
                 decoder_type=decoder_type, ntoken=NTOKEN, v_dim=V_DIM,
@@ -110,6 +112,17 @@ def test_convert_round_trips_caption_models(rng, decoder_type, predictor_type,
     np.testing.assert_allclose(cap["predict"].numpy(),
                                np.asarray(ref["predict"]), rtol=1e-4,
                                atol=1e-5)
+    if predictor_type == "q-cap":
+        assert sd["predictor.caption_embedding.attention.W_v.main.0.weight"
+                  ].shape == (HIDDEN, HIDDEN)
+        assert sd["predictor.v_net.main.0.weight"].shape == (HIDDEN, V_DIM)
+        with torch.no_grad():
+            predict, _ = port({k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+        np.testing.assert_allclose(
+            predict.numpy(), np.asarray(jm.apply({"params": params},
+                                                 jbatch)[0]),
+            rtol=1e-4, atol=1e-5)
 
 
 def test_convert_names_the_reference_keys(rng):

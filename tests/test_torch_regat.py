@@ -189,8 +189,9 @@ def test_relation_model_bf16_int8_feed_matches_jax(rng):
 
 @pytest.mark.parametrize("override", [{"predictor_type": "q-cap"}])
 def test_set_model_rejects_what_stays_unported(override):
-    """The Q-Relevant head is not ported yet (a caption decoder over the
-    relation encoder and frozen GloVe embeddings are:
-    tests/test_torch_regat_train.py, tests/test_torch_caption_heads.py)."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        set_model(**{**DIMS, **override}, device="cpu")
+    """Nothing the relation encoder takes stays unported: the Q-Relevant
+    head builds over it too (tests/test_torch_qrel.py holds the head
+    against vqa_tpu) and reads the GCN's summed features."""
+    model = set_model(**{**DIMS, **override}, device="cpu")
+    assert type(model.encoder).__name__ == "RelationEncoder"
+    assert type(model.predictor).__name__ == "PredictorwithCaption"

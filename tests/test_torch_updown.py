@@ -144,23 +144,23 @@ def test_compute_score_and_bce_match_jax(rng):
     {"encoder_type": "relation", "decoder_type": "base"},
 ])
 def test_set_model_rejects_what_the_slice_does_not_hold(override):
-    """Of the configurations the Up-Down slice refused, set_model now builds
-    all but the Q-Relevant head (q-cap), which still raises: the relation
-    encoder with a caption decoder (GCN-LSTM), the caption encoder, the
-    base-cap head and a frozen GloVe table (tests/test_torch_regat_train.py
-    and tests/test_torch_caption_heads.py hold them against vqa_tpu)."""
-    if override.get("predictor_type") == "q-cap":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            set_model(**{**DIMS, **override}, device="cpu")
-        return
+    """Every configuration the Up-Down slice refused now builds: the
+    relation encoder with a caption decoder (GCN-LSTM), the caption encoder,
+    the base-cap head, a frozen GloVe table and the Q-Relevant head (q-cap)
+    over a base encoder that forms the dense ``v`` and no pooled ``v_sum``
+    (tests/test_torch_regat_train.py, tests/test_torch_caption_heads.py and
+    tests/test_torch_qrel.py hold them against vqa_tpu)."""
     model = set_model(**{**DIMS, "decoder_hidden_dim": HIDDEN, **override},
                       device="cpu")
     want = {"relation": "RelationEncoder", "cap": "CaptionEncoder"}
     assert type(model.encoder).__name__ == want.get(
         override.get("encoder_type"), "BaseEncoder")
-    assert type(model.predictor).__name__ == (
-        "BaseCaptionPredictor" if "predictor_type" in override
-        else "BasePredictor")
+    heads = {"base-cap": "BaseCaptionPredictor",
+             "q-cap": "PredictorwithCaption"}
+    assert type(model.predictor).__name__ == heads.get(
+        override.get("predictor_type"), "BasePredictor")
+    if override.get("predictor_type") == "q-cap":
+        assert model.encoder.with_v and not model.encoder.with_v_sum
     assert (model.generator is None) == ("decoder_type" not in override)
     frozen = "frozen_embedding" in override
     assert (model.encoder.embedding.weight is None) == frozen

@@ -138,7 +138,7 @@ def parse_args(argv=None):
                              "raises above 1)")
     parser.add_argument("--train_strategy", type=str, default="joint",
                         help="joint | select (Q-Relevant max-relevance "
-                             "backprop; select is not ported and raises)")
+                             "backprop over every candidate caption)")
     parser.add_argument("--profile_dir", type=str, default="",
                         help="capture a torch.profiler trace of steps "
                              "[10, 20)")

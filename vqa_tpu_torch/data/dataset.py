@@ -5,7 +5,8 @@ Four variants, keyed as the reference keys them:
 
 - ``vqa``    VQADataset           (q, a, img)
 - ``vqa-e``  VQAEDataset          (+ one explanation caption per QA)
-- ``all``    VQACaptionAllDataset (5x size: every COCO caption)
+- ``all``    VQACaptionAllDataset (5x size: every COCO caption; its
+             ``get_batch_all`` gives all of a question's captions at once)
 - ``select`` VQACaptionDataset    (one caption per QA via a selection pickle)
 
 ``get_batch(indices)`` returns a dict of stacked fixed-shape numpy arrays;
@@ -171,6 +172,17 @@ class VQACaptionAllDataset(VQADataset):
         caps = [self._caption_for(v, c) for v, c in pairs]
         out["c"] = np.asarray([c[0] for c in caps], np.int32)
         out["cap_len"] = np.asarray([c[1] for c in caps], np.int32)
+        return out
+
+    def get_batch_all(self, indices):
+        """Every candidate caption of each question, the max-relevance
+        training feed (``training/select.py``): ``c_all`` [B, n_cap, c_len]
+        and ``cap_len_all`` [B, n_cap]. ``indices`` are question indices."""
+        out = self._vqa_batch(indices)
+        entries = [self.captions[self.img_ids[i]] for i in indices]
+        out["c_all"] = np.asarray([e["c"] for e in entries], np.int32)
+        out["cap_len_all"] = np.asarray([e["cap_len"] for e in entries],
+                                        np.int32)
         return out
 
     @property

@@ -4,7 +4,10 @@ multi-host sharding).
 
 - Fixed shapes: every batch has exactly ``batch_size`` rows; a short tail
   batch repeats its first row and carries ``nvalid``.
-- Vectorized assembly: the dataset's ``get_batch`` gathers a whole batch.
+- Vectorized assembly: the dataset's ``get_batch`` (or the method named by
+  ``batch_method``) gathers a whole batch; ``length`` overrides the index
+  space, as the max-relevance feed needs (``get_batch_all`` takes question
+  indices of a dataset whose ``len`` counts five captions a question).
 - Pipelined: a background thread assembles the next batches.
 - Caption length bucketing (``length_bucket``): samples whose ``cap_len``
   falls in the same bucket form a batch whose caption axis is cut to the
@@ -31,6 +34,8 @@ class Loader:
                  seed: int = 1111, drop_last: bool = False, prefetch: int = 2,
                  transform: Optional[Callable[[Dict[str, np.ndarray]],
                                               Dict[str, np.ndarray]]] = None,
+                 batch_method: str = "get_batch",
+                 length: Optional[int] = None,
                  length_bucket: bool = False,
                  bucket_bounds: tuple = (8, 12, 16, 20)):
         self.dataset = dataset
@@ -41,7 +46,8 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.transform = transform
-        self.length = len(dataset)
+        self.batch_method = batch_method
+        self.length = length if length is not None else len(dataset)
         self.length_bucket = length_bucket
         self.bucket_bounds = tuple(sorted(bucket_bounds))
         if length_bucket:
@@ -79,7 +85,7 @@ class Loader:
         return [int(np.sum(which == b)) for b in range(len(self.bucket_bounds))]
 
     def _finish(self, idx: np.ndarray, nvalid: int, bound: Optional[int]):
-        batch = self.dataset.get_batch(list(idx))
+        batch = getattr(self.dataset, self.batch_method)(list(idx))
         batch["nvalid"] = np.int32(nvalid)
         # keep one padded position beyond the bound, as the JAX package
         # does (its caption-reading predictors need it)

@@ -9,11 +9,14 @@ under ``checkpoint/<comment>/``: ``param.pkl``, ``param.txt``, the log,
 It builds on ``--device`` (default ``cuda``); without a CUDA device it
 fails unless ``--device cpu`` is given, where the kernels run as their
 plain versions. Checkpoints are the port's own ``torch.save`` format
-(``training/checkpoint.py``). Where ``--pretrained_embed_path`` names a
-file, its GloVe table is the encoder's frozen word embedding, as in the
-JAX entry point. Not ported, and raising ``NotImplementedError``:
-``--n_model_shards`` above 1, ``--train_strategy select`` and the
-``q-cap`` head.
+(``training/checkpoint.py``); ``--load_model`` also takes a reference
+``torch.save(state_dict())`` file for val, decode and a warm start. Where
+``--pretrained_embed_path`` names a file, its GloVe table is the encoder's
+frozen word embedding, as in the JAX entry point. ``--train_strategy
+select`` trains with the max-relevance step over every candidate caption
+(CONFIGS.md config 4; its feed is the dense features of the all-captions
+dataset, as the JAX entry point builds it). Not ported, and raising
+``NotImplementedError``: ``--n_model_shards`` above 1.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from vqa_tpu_torch.ops.embedding import load_glove_table
 from vqa_tpu_torch.tools.beam import make_beam_search, tokens_to_captions
 from vqa_tpu_torch.training import optim as optim_lib
 from vqa_tpu_torch.training.checkpoint import (
-    load_checkpoint, load_params, merge_params)
+    load_checkpoint, load_params, merge_params, restore_params)
 from vqa_tpu_torch.training.logging import Logger, MetricsWriter
 from vqa_tpu_torch.training.state import TrainState, make_eval_step
 from vqa_tpu_torch.training.train import (
@@ -146,8 +149,6 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "--n_model_shards > 1 (a tensor-parallel mesh) is not ported yet "
             "(ROADMAP.md Queue 1, Parallel)")
-    if getattr(args, "train_strategy", "joint") == "select":
-        train_select()
     # --val_every N overrides the reference's derived mid-epoch validation
     val_checkpoint = (getattr(args, "val_every", 0)
                       or (args.select_path == "none"))
@@ -206,21 +207,38 @@ def _run(args, device: torch.device, logger: Logger, val_checkpoint) -> None:
                         "pass --train_dtype float32 for the reference "
                         "recipe's f32 numerics")
         print("start training.")
-        train(model=model, lr=args.lr, train_loader=train_loader,
-              val_loader=val_loader, num_epoches=args.epoches,
-              save_path=save_path, logger=logger, checkpoint=10000,
-              max_norm=0.25, comment=args.comment + "_train",
-              start_epoch=args.start_epoch, batches=args.batches,
-              best_score=best_score, warm_up=args.warm_up,
-              step_size=args.step_size, gamma=args.gamma,
-              lr_vqa=args.lr_vqa, lr_cap=args.lr_cap,
-              val_checkpoint=val_checkpoint, seed=args.seed,
-              init_state=init_state, profile_dir=args.profile_dir or None,
-              train_dtype=getattr(args, "train_dtype", "float32"))
+        common = dict(model=model, lr=args.lr, val_loader=val_loader,
+                      num_epoches=args.epoches, save_path=save_path,
+                      logger=logger, checkpoint=10000, max_norm=0.25,
+                      comment=args.comment + "_train",
+                      start_epoch=args.start_epoch, batches=args.batches,
+                      best_score=best_score, warm_up=args.warm_up,
+                      step_size=args.step_size, gamma=args.gamma,
+                      lr_vqa=args.lr_vqa, lr_cap=args.lr_cap,
+                      val_checkpoint=val_checkpoint, seed=args.seed,
+                      init_state=init_state,
+                      profile_dir=args.profile_dir or None,
+                      train_dtype=getattr(args, "train_dtype", "float32"))
+        if getattr(args, "train_strategy", "joint") == "select":
+            # max-relevance training over every candidate caption: the
+            # all-captions dataset's dense features, as the JAX entry point
+            # builds it (no feature mode, no transform, no length buckets)
+            all_ds = set_dataset(
+                load_path=args.load_path, feature_path=args.feature_path,
+                ans_dim=len(ans_list), caption_id_path=args.select_path,
+                graph_path=args.graph_path
+                if args.encoder_type == "relation" else "",
+                is_train=True, dataset_type="all")
+            sel_loader = Loader(all_ds, args.batch_size, shuffle=args.shuffle,
+                                seed=args.seed, batch_method="get_batch_all",
+                                length=len(all_ds.questions))
+            train_select(train_loader=sel_loader, **common)
+        else:
+            train(train_loader=train_loader, **common)
 
     if args.mode in ("train", "val") and args.predictor_type != "none":
         load_model = args.load_model or os.path.join(save_path, "best_model.ckpt")
-        model.load_state_dict(load_params(load_model))
+        restore_params(model, load_params(load_model))
         print("load parameters: ", load_model)
 
         index_path = os.path.join(args.load_path, args.index_path)
@@ -259,7 +277,7 @@ def _run(args, device: torch.device, logger: Logger, val_checkpoint) -> None:
             epochs = glob.glob(os.path.join(save_path, "epoch_*.ckpt"))
             if epochs:
                 load_model = max(epochs, key=os.path.getmtime)
-        model.load_state_dict(load_params(load_model))
+        restore_params(model, load_params(load_model))
         print("load parameters: ", load_model)
         decode_dtype = _DECODE_DTYPES[getattr(args, "decode_dtype", "float32")]
         model = model.to(decode_dtype).eval()

@@ -2,13 +2,13 @@
 ``vqa_tpu/models/wrapper.py``).
 
 The port holds the encoders ``base``, ``relation`` (ReGAT) and ``cap``,
-the VQA heads ``base`` and ``base-cap`` (VQA-E, which reads the caption
-too), and the Base/BUTD caption decoders over any of the encoders (the
-relation encoder with a decoder is GCN-LSTM), each alone or with both
-heads, for inference and for training through ``get_loss`` (the MTL
-uncertainty weighting with both heads), with a learned or a frozen GloVe
-word embedding. ``set_model`` raises ``NotImplementedError`` for the
-Q-Relevant head ``q-cap``.
+the VQA heads ``base``, ``base-cap`` (VQA-E, which reads the caption too)
+and ``q-cap`` (Q-Relevant, the gated caption embedding), and the Base/BUTD
+caption decoders over any of the encoders (the relation encoder with a
+decoder is GCN-LSTM), each alone or with both heads, for inference and for
+training through ``get_loss`` (the MTL uncertainty weighting with both
+heads) or the max-relevance step of ``training/select.py``, with a learned
+or a frozen GloVe word embedding.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from vqa_tpu_torch.models.encoder import (
     BaseEncoder, CaptionEncoder, RelationEncoder)
 from vqa_tpu_torch.models.generator import set_decoder
-from vqa_tpu_torch.models.predictor import BaseCaptionPredictor, BasePredictor
+from vqa_tpu_torch.models.predictor import (
+    BaseCaptionPredictor, BasePredictor, PredictorwithCaption)
 
 
 def compute_score(predict: torch.Tensor, target: torch.Tensor,
@@ -202,14 +203,12 @@ def set_model(encoder_type: str = "base",
     asks for another, and an error where there is no CUDA device and no
     ``device`` was given. ``frozen_embedding``: a GloVe table
     (``ops/embedding.py`` ``load_glove_table``) in place of the encoder's
-    learned word embedding."""
-    del neg_slope
+    learned word embedding. The ``q-cap`` head reads the attended
+    features box by box, so its base encoder forms the dense ``v`` on the
+    int8 feed too, and no pooled ``v_sum``."""
     if encoder_type not in ("base", "relation", "cap"):
         raise ValueError(f"unknown encoder_type: {encoder_type}")
-    if predictor_type == "q-cap":
-        raise NotImplementedError("predictor_type 'q-cap' is not ported yet "
-                                  "(ROADMAP.md Queue 1, Q-Relevant)")
-    if predictor_type not in ("base", "base-cap", "none"):
+    if predictor_type not in ("base", "base-cap", "q-cap", "none"):
         raise ValueError(f"unknown predictor_type: {predictor_type}")
     if decoder_type not in ("base", "butd", "none"):
         raise ValueError(f"unknown decoder_type: {decoder_type}")
@@ -227,15 +226,21 @@ def set_model(encoder_type: str = "base",
         encoder = CaptionEncoder(ntoken, embed_dim, frozen_embedding,
                                  generator=generator)
     else:
-        encoder = BaseEncoder(ntoken, v_dim, embed_dim, hidden_dim,
-                              with_v=decoder_type != "none",
-                              with_v_sum=predictor_type != "none", **common)
+        encoder = BaseEncoder(
+            ntoken, v_dim, embed_dim, hidden_dim,
+            with_v=decoder_type != "none" or predictor_type == "q-cap",
+            with_v_sum=predictor_type in ("base", "base-cap"), **common)
     head = dict(cls_layer=cls_layer, dropout=dropout, generator=generator)
-    predictor = (BasePredictor(v_dim, hidden_dim, ans_dim, **head)
-                 if predictor_type == "base" else
-                 BaseCaptionPredictor(v_dim, embed_dim, hidden_dim, ans_dim,
-                                      **head)
-                 if predictor_type == "base-cap" else None)
+    if predictor_type == "base":
+        predictor = BasePredictor(v_dim, hidden_dim, ans_dim, **head)
+    elif predictor_type == "base-cap":
+        predictor = BaseCaptionPredictor(v_dim, embed_dim, hidden_dim,
+                                         ans_dim, **head)
+    elif predictor_type == "q-cap":
+        predictor = PredictorwithCaption(v_dim, embed_dim, hidden_dim,
+                                         ans_dim, neg_slope=neg_slope, **head)
+    else:
+        predictor = None
     decoder = set_decoder(decoder_type, ntoken, decoder_hidden_dim, c_len,
                           dropout=dropout, rnn_type=rnn_type,
                           att_type=att_type, att_dropout=att_dropout,

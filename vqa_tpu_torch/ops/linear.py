@@ -15,6 +15,8 @@ Counterparts of ``vqa_tpu/ops/linear.py``:
   JAX package's ``_Dense`` and the GCN's bias-free direction weights.
 - ``DotProduct``: the bilinear similarity ``(a Wa + ba) (b Wb + bb)^T`` of
   the correlated graph conv, and its ``similarity_parts`` form.
+- ``LReLUNet``: a bias-free Linear and a LeakyReLU, the Q-Relevant head's
+  layer, held as the reference's Sequential ``main`` (``main.0.weight``).
 """
 
 from __future__ import annotations
@@ -174,6 +176,23 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.weight.to(x.dtype).t())
         return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+class LReLUNet(nn.Module):
+    """Bias-free Linear + LeakyReLU (reference modules.py:62-77), as the
+    reference's ``Sequential(Linear(bias=False), LeakyReLU)`` named ``main``,
+    so that its one parameter is ``main.0.weight`` [out, in]. The product
+    runs in the input's dtype."""
+
+    def __init__(self, in_dim: int, out_dim: int, neg_slope: float = 0.01, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.main = nn.Sequential(Dense(in_dim, out_dim, bias=False,
+                                        generator=generator),
+                                  nn.LeakyReLU(neg_slope))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.main(x)
 
 
 class DotProduct(nn.Module):

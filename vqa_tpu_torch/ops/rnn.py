@@ -152,7 +152,8 @@ class _RNNWeights(nn.Module):
 class SentenceEmbedding(nn.Module):
     """Batch-first multi-layer (bi)RNN returning the last *padded* step
     [B, H * ndir]; for bidirectional, concat(forward last step, backward
-    step-0 output) (reference modules.py:98-163).
+    step-0 output) (reference modules.py:98-163). ``forward_all`` returns
+    every step's output.
 
     ``use_pallas`` routes inference to the gru_v2 kernel on the JAX
     package's eligibility (GRU, 1 layer, unidirectional, bf16, B % 8 == 0)
@@ -184,15 +185,10 @@ class SentenceEmbedding(nn.Module):
                 and x.shape[0] % 8 == 0
                 and gru_v2.supports(x.shape[1], self.hidden_dim, x.dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, T, in] -> [B, H * ndir]."""
-        if self._kernel_eligible(x):
-            w_ih, b_ih, w_hh, b_hh = self.rnn.layer(0, 0)
-            # the input GEMM for all steps stays a plain matmul, as in JAX
-            xi_all = torch.matmul(x, w_ih.to(x.dtype).t()) + b_ih.to(x.dtype)
-            out = gru_v2.gru_last_state_v2(xi_all, w_hh.to(x.dtype).t(),
-                                           b_hh.to(x.dtype))
-            return out.to(x.dtype)
+    def forward_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, T, in] -> every step's output [B, T, H * ndir], always
+        through the plain scan (the GRU kernel computes the last state
+        only)."""
         ndir = 2 if self.bidirect else 1
         out = x
         for layer in range(self.rnn_layer):
@@ -202,6 +198,18 @@ class SentenceEmbedding(nn.Module):
             # torch applies inter-layer dropout on all but the last layer
             if layer < self.rnn_layer - 1:
                 out = self.drop(out)
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, T, in] -> [B, H * ndir]."""
+        if self._kernel_eligible(x):
+            w_ih, b_ih, w_hh, b_hh = self.rnn.layer(0, 0)
+            # the input GEMM for all steps stays a plain matmul, as in JAX
+            xi_all = torch.matmul(x, w_ih.to(x.dtype).t()) + b_ih.to(x.dtype)
+            out = gru_v2.gru_last_state_v2(xi_all, w_hh.to(x.dtype).t(),
+                                           b_hh.to(x.dtype))
+            return out.to(x.dtype)
+        out = self.forward_all(x)
         if not self.bidirect:
             return out[:, -1]
         return torch.cat([out[:, -1, :self.hidden_dim],

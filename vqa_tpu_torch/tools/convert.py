@@ -20,6 +20,13 @@ whose keys are the reference's torch names, which the port uses too:
 - the ``base-cap`` head's ``c_rnn`` (a SentenceEmbedding) and ``c_net``
   (an FCNet) by the rules above: ``predictor.c_rnn.rnn.weight_ih_l0``,
   ``predictor.c_net.main.0.weight_v``, ...;
+- an LReLUNet, a module whose one leaf is ``w`` [in, out] -> ``main.0.weight``
+  [out, in] (the reference's Sequential(Linear(bias=False), LeakyReLU));
+  so the ``q-cap`` head maps as ``predictor.v_net.main.0.weight``, ...,
+  ``predictor.caption_embedding.attention.W_v.main.0.weight`` / ``W_q``,
+  ``predictor.caption_embedding.fcnet.main.0.weight``, and its two RNNs by
+  the SentenceEmbedding rule: ``predictor.caption_embedding.word_rnn.rnn.
+  weight_ih_l0``, ``....caption_rnn.rnn.weight_ih_l0``, ...;
 - the MTL weights ``log_vars`` as they are;
 - the GCN convs ``*_encoder.conv{i}`` of the relation encoder: the
   bias-free direction weights ``w{j}`` [in, out] -> ``w{j}.weight`` [out,
@@ -63,6 +70,9 @@ def _walk(node: Dict[str, Any], path: List[str],
             out[f"{base}.weight_g"] = _tensor(child["g"]).reshape(())
             if "b" in child:
                 out[f"{base}.bias"] = _tensor(child["b"])
+        elif isinstance(child, dict) and set(child) == {"w"}:
+            base = ".".join(path + [key])
+            out[f"{base}.main.0.weight"] = _tensor(child["w"]).t().contiguous()
         elif isinstance(child, dict) and set(child) == {"w", "b"}:
             base = ".".join(path + [key])
             out[f"{base}.weight"] = _tensor(child["w"]).t().contiguous()

@@ -7,6 +7,13 @@ Same artifact layout as the JAX package (``checkpoint/<exp>/epoch_{n}.ckpt``,
 files are not read here; a JAX checkpoint comes over by converting its
 parameters (``tools/convert.py``) on a machine with jax.
 
+A reference checkpoint, ``torch.save(model.state_dict())`` of the
+reference's model, is read as it is: the port's parameter names are the
+reference's. It serves evaluation, decoding and a warm start, not a
+training resume. Reference files carry no GCN convs (the reference keeps
+them in a plain list that ``state_dict`` does not see), so
+:func:`restore_params` takes those from the model it loads into.
+
 Writes are atomic: the payload goes to a temporary file beside the target,
 is flushed and fsynced, then renamed over it, so an interrupted save leaves
 the previous file (or none), never a partial one.
@@ -15,6 +22,7 @@ the previous file (or none), never a partial one.
 from __future__ import annotations
 
 import os
+import re
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
@@ -110,11 +118,9 @@ def load_checkpoint(path: str, state: Optional[TrainState] = None
     step and the run seed into ``state`` and returns ``{"state", "epoch",
     "best_score"}``."""
     payload = _read(path)
-    meta = {"epoch": int(payload["epoch"]),
-            "best_score": float(payload["best_score"])}
     if state is None:
         return payload
-    if not payload.get("optimizer"):
+    if _is_state_dict(payload) or not payload.get("optimizer"):
         raise ValueError(
             f"{path} has no optimizer state (a parameters-only checkpoint): "
             "it supports eval/decode (load_params) or a warm start "
@@ -123,12 +129,40 @@ def load_checkpoint(path: str, state: Optional[TrainState] = None
     state.optimizer.adamax.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     state.seed = int(payload["seed"])
-    return {"state": state, **meta}
+    return {"state": state, "epoch": int(payload["epoch"]),
+            "best_score": float(payload["best_score"])}
+
+
+def _is_state_dict(payload: Dict[str, Any]) -> bool:
+    """A bare ``state_dict`` (a reference checkpoint): tensors only."""
+    return all(torch.is_tensor(v) for v in payload.values())
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:
-    """The model's ``state_dict`` alone (for eval, decode, warm start)."""
-    return _read(path)["model"]
+    """The model's ``state_dict`` alone (for eval, decode, warm start), from
+    the port's checkpoint or from a bare ``state_dict`` file."""
+    payload = _read(path)
+    return payload if _is_state_dict(payload) else payload["model"]
+
+
+_GCN_CONV = re.compile(r"^encoder\.[a-z]+_encoder\.conv\d+\.")
+
+
+def restore_params(model: torch.nn.Module,
+                   params: Dict[str, torch.Tensor]) -> None:
+    """``model.load_state_dict(params)``, strict but for the relation
+    encoder's GCN convs (``encoder.*_encoder.conv*``), which a reference
+    checkpoint lacks: those ``params`` misses keep the model's values, as
+    ``merge_params`` keeps them. Any other missing or unexpected key
+    raises ``KeyError`` naming it."""
+    own = model.state_dict()
+    fill = [k for k in own if k not in params and _GCN_CONV.match(k)]
+    missing = [k for k in own if k not in params and k not in fill]
+    unexpected = [k for k in params if k not in own]
+    if missing or unexpected:
+        raise KeyError(f"the checkpoint does not fit the model: missing "
+                       f"{missing}, unexpected {unexpected}")
+    model.load_state_dict({**params, **{k: own[k] for k in fill}})
 
 
 def merge_params(target: Dict[str, torch.Tensor],

@@ -1,8 +1,9 @@
 """Train state and step factories (counterpart of
 ``vqa_tpu/training/state.py``).
 
-One training step: the loss through ``VQAModel.get_loss`` with dropout
-active, its gradients, the clip and the grouped Adamax update
+One training step: the loss through ``VQAModel.get_loss`` (or another loss
+of the model, as the max-relevance step's in ``training/select.py``) with
+dropout active, its gradients, the clip and the grouped Adamax update
 (``training/optim.py``). Mixed precision follows the JAX package, not
 ``torch.autocast``: the f32 master parameters are cast to ``compute_dtype``
 inside the loss (``torch.func.functional_call``), so autograd returns f32
@@ -57,15 +58,24 @@ class TrainState:
         self.seed, self.step = seed, step
 
 
-class _Loss(nn.Module):
-    """``get_loss`` as a module's forward, for ``functional_call``."""
+LossFn = Callable[[VQAModel, Dict, int], Tuple[torch.Tensor, Dict]]
 
-    def __init__(self, model: VQAModel):
+
+def joint_loss(model: VQAModel, batch: Dict, seed: int):
+    """The joint training loss, ``VQAModel.get_loss``."""
+    return model.get_loss(batch, seed=seed)
+
+
+class _Loss(nn.Module):
+    """A loss of the model as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model: VQAModel, loss_fn: LossFn):
         super().__init__()
         self.model = model
+        self.loss_fn = loss_fn
 
     def forward(self, batch, seed):
-        return self.model.get_loss(batch, seed=seed)
+        return self.loss_fn(self.model, batch, seed)
 
 
 def _cast_floats(tree: Dict, dtype: Optional[torch.dtype]) -> Dict:
@@ -76,11 +86,12 @@ def _cast_floats(tree: Dict, dtype: Optional[torch.dtype]) -> Dict:
 
 
 def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
-                  compute_dtype: Optional[torch.dtype] = torch.bfloat16
-                  ) -> Dict[str, torch.Tensor]:
+                  compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+                  loss_fn: LossFn = joint_loss) -> Dict[str, torch.Tensor]:
     """The loss of training step ``step`` (dropout active, drawn from (run
     seed, step)) and its gradients, left in the f32 parameters' ``.grad``.
-    Returns ``loss`` and the ``train/*`` writes of ``get_loss``, detached."""
+    ``loss_fn(model, batch, scan_seed) -> (loss, writes)``. Returns ``loss``
+    and the ``train/*`` writes, detached."""
     model.train()
     torch_seed, scan_seed = step_seeds(run_seed, step)
     params = {"model." + n: p for n, p in model.named_parameters()}
@@ -90,7 +101,8 @@ def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
             devices=[dev.index or 0] if dev.type == "cuda" else []):
         torch.manual_seed(torch_seed)
         loss, writes = functional_call(
-            _Loss(model), _cast_floats({**params, **buffers}, compute_dtype),
+            _Loss(model, loss_fn),
+            _cast_floats({**params, **buffers}, compute_dtype),
             (_cast_floats(batch, compute_dtype), scan_seed))
         for p in model.parameters():
             p.grad = None
@@ -101,18 +113,20 @@ def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
 
 
 def make_train_step(model: VQAModel, optimizer: Optimizer,
-                    compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                    compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+                    loss_fn: LossFn = joint_loss
                     ) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics``: one update of ``state.model``.
 
     ``batch`` holds device tensors (the Loader's keys); ``compute_dtype``
-    None trains in the parameters' own dtype. Metrics: ``loss`` and the
-    ``train/*`` writes of ``get_loss``, plus ``grad_norm``.
+    None trains in the parameters' own dtype; ``loss_fn`` is the loss (see
+    :func:`backward_step`). Metrics: ``loss`` and the ``train/*`` writes of
+    the loss, plus ``grad_norm``.
     """
 
     def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         metrics = backward_step(model, batch, state.seed, state.step,
-                                compute_dtype)
+                                compute_dtype, loss_fn)
         metrics["grad_norm"] = optimizer.step(state.step)
         state.step += 1
         return metrics

@@ -8,7 +8,8 @@ validation before each epoch checkpoint, the mid-epoch average over the
 steps actually run, asynchronous interval and epoch saves, a synchronous
 ``best_model.ckpt`` (best by validation score, or by train caption loss
 without a VQA head) that the first validation always materializes, and
-padded tail rows masked by ``nvalid`` in evaluation.
+padded tail rows masked by ``nvalid`` in evaluation. ``train_select`` is
+the same loop over all-candidate batches with the max-relevance step.
 
 Kept as the JAX package has them, since they change numbers its tests
 compare: with ``batches`` set, the epoch-end average divides by
@@ -31,6 +32,7 @@ from vqa_tpu_torch.models.wrapper import VQAModel
 from vqa_tpu_torch.training import optim as optim_lib
 from vqa_tpu_torch.training.checkpoint import Checkpointer, save_checkpoint
 from vqa_tpu_torch.training.logging import Logger, MetricsWriter
+from vqa_tpu_torch.training.select import make_train_select_step
 from vqa_tpu_torch.training.state import (
     TrainState, make_eval_step, make_train_step)
 
@@ -134,12 +136,15 @@ def train(model: VQAModel,
           init_state: Optional[TrainState] = None,
           profile_dir: Optional[str] = None,
           profile_steps: tuple = (10, 20),
-          train_dtype: str = "float32") -> TrainState:
+          train_dtype: str = "float32",
+          step_factory=None) -> TrainState:
     """Train ``model`` in place; returns the final TrainState.
 
     ``init_state`` (a resumed state, its optimizer included) replaces the
     fresh one. ``profile_dir``: a ``torch.profiler`` trace of global steps
-    [profile_steps) goes to ``profile_dir/trace.json``.
+    [profile_steps) goes to ``profile_dir/trace.json``. ``step_factory``:
+    ``(model, optimizer, compute_dtype=) -> step``, ``make_train_step``
+    when None.
     """
     writer = MetricsWriter(save_path, comment=comment)
     steps_per_epoch = batches if batches else len(train_loader)
@@ -156,8 +161,8 @@ def train(model: VQAModel,
             warm_up=warm_up, step_size=step_size, gamma=gamma,
             steps_per_epoch=steps_per_epoch)
         state = TrainState(model, optimizer, seed=seed)
-    train_step = make_train_step(model, state.optimizer,
-                                 compute_dtype=compute_dtype_of(train_dtype))
+    train_step = (step_factory or make_train_step)(
+        model, state.optimizer, compute_dtype=compute_dtype_of(train_dtype))
     eval_step = make_eval_step(model)
     checkpointer = Checkpointer()
 
@@ -294,8 +299,14 @@ def _stop_profiler(prof, device: torch.device, profile_dir: str) -> None:
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
-def train_select(*args, **kwargs):
-    """The max-relevance (Q-Relevant) training loop is not ported."""
-    raise NotImplementedError(
-        "train_select (--train_strategy select) is not ported yet "
-        "(ROADMAP.md Queue 1, Q-Relevant)")
+def train_select(model: VQAModel, lr: float, train_loader, val_loader,
+                 logger: Logger, save_path: str, num_epoches: int,
+                 **kwargs) -> TrainState:
+    """The max-relevance (Q-Relevant) training loop: ``train`` with the
+    step of ``training/select.py``. ``train_loader`` yields all-candidate
+    batches: ``Loader(dataset, ..., batch_method="get_batch_all",
+    length=len(dataset.questions))`` over a ``VQACaptionAllDataset``."""
+    return train(model=model, lr=lr, train_loader=train_loader,
+                 val_loader=val_loader, logger=logger, save_path=save_path,
+                 num_epoches=num_epoches, step_factory=make_train_select_step,
+                 **kwargs)
