@@ -157,8 +157,20 @@ Phases, each of which raises (exit code 1) on failure:
    4 as written (``base-cap``, the base decoder, ``--train_strategy
    select``, the GloVe file) and its q-cap variant through
    ``vqa_tpu_torch.main.main``: one epoch of 2 steps of B=512, then
-   ``--mode val``, with each mode's wall time. Each phase's wall time is
-   logged, and the total.
+   ``--mode val``, with each mode's wall time;
+16. parallel: the MTL step of phase 7 over 2 processes (``chip_smoke.py
+   --parallel-rank``, the ``('data', 'model')`` mesh of
+   ``vqa_tpu_torch.parallel``, data parallel: over gloo when they share
+   the card, NCCL when each has its own; started once this process has
+   written their batch and the reference), B=512 a rank from one batch
+   whose halves hold different caption-token counts: each rank's averaged
+   f32 and bf16 gradients and loss against the same halves run in this
+   process with each rank's folded seeds and the global token count
+   (phase 8's tolerances), 19 decode_att_fwd / _bwd and 1 _dvp a rank a
+   step, the step's time; where the machine has 2 cards, a 1x2
+   tensor-parallel step (NCCL) on one half against its one-process step,
+   else a line saying why it was not run. A failed rank fails the phase.
+   Each phase's wall time is logged, and the total.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
@@ -327,6 +339,20 @@ SELECT_DIMS = dict(QCAP_DIMS, decoder_type="butd", decoder_hidden_dim=HIDDEN,
                    use_mtl=True)   # dropout 0.5 / 0.2, the defaults
 N_CAP, QCAP_TIME_BATCH, SELECT_TIME_BATCH = 5, 4096, 2048
 SELECT_PEAK_LIMIT = 40 * 2 ** 30
+# phase 16: the MTL step of phase 7 over two processes, each with its own
+# B=512 rows of one B=1024 batch (data parallel over gloo; the ranks share
+# the card, so its times witness correctness, not NCCL's speed); the
+# gradients are held to phase 8's tolerances against the same two halves
+# run in this process with each rank's folded seeds and the global token
+# count, left out: the attention linears' biases (see GRAD_PREFIXES). The
+# ranks have PAR_TIMEOUT s.
+PAR_RANKS, PAR_TIMED_STEPS, PAR_TIMEOUT, PAR_MODEL_SEED = 2, 2, 120, 16
+# the MTL model of phases 7-9 and 16 (dropout 0.5 / 0.2, the defaults)
+MTL_DIMS = dict(encoder_type="base", predictor_type="base", decoder_type="butd",
+                ntoken=NTOKEN, v_dim=V_DIM, embed_dim=EMBED, hidden_dim=HIDDEN,
+                decoder_hidden_dim=HIDDEN, ans_dim=ANS, c_len=C_LEN,
+                att_type="new", use_mtl=True)
+PAR_NOISE = ("attention.linear.bias",)
 
 # the card's peaks for the bound of each kernel: HBM3 bytes per ms, dense
 # bf16 and int8 tensor-core and f32 (non-tensor) operations per ms
@@ -549,6 +575,224 @@ def profile_run(name: str, run, steps: int) -> None:
         f"{k} {v:.2f}" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
 
 
+def full_precision_products() -> None:
+    """f32 products in f32 and bf16 products reduced in f32, in every
+    process of the run, so that a rank computes what this process does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def parallel_phase(card: str, int8_feed, gen) -> dict:
+    """Phase 16: the MTL training step of phase 7 (bf16 over f32 masters,
+    dropout 0.5 / 0.2, use_pallas, the int8 feed) over PAR_RANKS processes
+    (the ``('data', 'model')`` mesh of ``vqa_tpu_torch.parallel``, data
+    parallel: over gloo where they share the card, over NCCL where each has
+    its own), each on its B=512 rows of one batch whose halves hold
+    different caption-token counts. This process first runs the reference:
+    those halves, one after the other, with each rank's folded seeds and
+    the global token count, their gradients averaged; then it starts the
+    ranks, which build the model from the same seed. Where the machine has
+    two cards, a 1x2 tensor-parallel step (NCCL, a card a rank) on one
+    B=512 half follows, held to that half's one-process step. Returns rank
+    0's kernel launches of one full data-parallel step."""
+    from vqa_tpu_torch.models.wrapper import set_model
+    from vqa_tpu_torch.training.state import backward_step, joint_loss
+
+    tp = torch.cuda.device_count() >= 2
+    dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+    spec = {"dims": MTL_DIMS, "seed": PAR_MODEL_SEED}
+    model = set_model(**spec["dims"], use_pallas=True,
+                      generator=torch.Generator().manual_seed(spec["seed"]))
+    rows = PAR_RANKS * TRAIN_BATCH
+    x_q, scale = int8_feed(rows * OBJS, V_DIM)
+    batch = {"q": torch.randint(0, NTOKEN, (rows, Q_LEN), device=dev, generator=gen),
+             "a": (torch.randint(0, 4, (rows, ANS), device=dev, generator=gen)
+                   * (torch.rand(rows, ANS, device=dev, generator=gen) < 2e-3)) / 3.0,
+             "c": torch.randint(0, NTOKEN - 4, (rows, C_LEN), device=dev, generator=gen),
+             "cap_len": torch.randint(2, C_LEN + 1, (rows,), device=dev, generator=gen),
+             "img_q": x_q.view(rows, OBJS, V_DIM),
+             "img_scale": scale.view(rows, OBJS).float()}
+    halves = [{k: v[r * TRAIN_BATCH:(r + 1) * TRAIN_BATCH] for k, v in batch.items()}
+              for r in range(PAR_RANKS)]
+    counts = [int((h["cap_len"] - 1).clamp(min=0).sum()) for h in halves]
+    require(len(set(counts)) == PAR_RANKS,
+            f"phase 16: the ranks' caption-token counts {counts} do not differ")
+    mean = sum(counts) / PAR_RANKS
+
+    def reference(parts, token_count):
+        """Loss and gradients, averaged over ``parts`` (part r run with data
+        rank r's seeds), in f32 and bf16."""
+        ref = {}
+        for label, dtype in (("f32", None), ("bf16", bf16)):
+            loss, grads = 0.0, {}
+            for r, part in enumerate(parts):
+                m = backward_step(model, part, RUN_SEED, 0, dtype, joint_loss, r,
+                                  token_count)
+                loss += m["loss"].item() / len(parts)
+                for n, p in model.named_parameters():
+                    grads[n] = p.grad.detach().clone() if r == 0 else grads[n] + p.grad
+            ref[label] = {"loss": loss,
+                          "grads": {n: (g / len(parts)).cpu() for n, g in grads.items()}}
+        return ref
+
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                    "ref": reference(halves, lambda c: torch.full_like(c, mean))},
+                   os.path.join(work, "dp.pt"))
+        if tp:
+            torch.save({"batch": {k: v.cpu() for k, v in halves[0].items()},
+                        "ref": reference(halves[:1], None)},
+                       os.path.join(work, "tp.pt"))
+        del model, batch, halves, x_q, scale
+        torch.cuda.empty_cache()
+        results = finish_ranks(work, "dp", start_ranks(work, "dp", dict(spec, n_model=1)))
+        tp_results = (finish_ranks(work, "tp", start_ranks(work, "tp", dict(spec, n_model=2)))
+                      if tp else None)
+    for rank, res in enumerate(results):
+        step = res["step_launches"]
+        log(f"parallel: rank {rank} launches in one step: "
+            f"{ {k: step[k] for k in TRAIN_KERNELS} }")
+        require(step["decode_att_fwd"] == step["decode_att_bwd"] == C_LEN - 1
+                and step["decode_att_dvp"] == 1,
+                f"phase 16: rank {rank} did not launch decode_att_fwd / _bwd once per "
+                "decoder step and decode_att_dvp once per step")
+    shared = results[0]["backend"] == "gloo"
+    log(f"time parallel step: {PAR_RANKS} ranks x B={TRAIN_BATCH} over "
+        f"{results[0]['backend']}"
+        + (" on one card (a correctness witness: the ranks share the card and gloo "
+           "stages the all-reduce through the host, so this is no figure for NCCL)"
+           if shared else ", a card a rank")
+        + f", bf16 MTL step {results[0]['step_ms']:.2f} ms (rank 0), "
+        f"{results[1]['step_ms']:.2f} ms (rank 1), token counts {counts} [{card}]")
+    if tp:
+        log(f"time parallel 1x2 tensor-parallel step (NCCL, a card a rank), bf16 MTL step "
+            f"B={TRAIN_BATCH}: {tp_results[0]['step_ms']:.2f} ms [{card}]")
+    else:
+        log(f"parallel: the 1x2 tensor-parallel step was not run on this machine: it has "
+            f"{torch.cuda.device_count()} card, gloo cannot all-gather CUDA tensors, and "
+            "NCCL refuses two ranks on one card")
+    return results[0]["step_launches"]
+
+
+def start_ranks(work: str, tag: str, spec: dict) -> list:
+    """Start PAR_RANKS ``--parallel-rank work/{tag}`` processes after writing
+    ``work/{tag}.json`` (the model's dims and seed, the mesh's model axis)."""
+    from vqa_tpu_torch.parallel.dryrun import free_port
+
+    path = os.path.join(work, tag)
+    with open(path + ".json", "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs = []
+    for rank in range(PAR_RANKS):
+        env = dict(os.environ, VQA_TPU_MULTIHOST="1", VQA_TPU_COORD=f"localhost:{port}",
+                   VQA_TPU_NPROCS=str(PAR_RANKS), VQA_TPU_PROC_ID=str(rank))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--parallel-rank", path], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    return procs
+
+
+def finish_ranks(work: str, tag: str, procs: list) -> list:
+    """Wait for the ranks, log their output and their gradient checks, fail
+    unless every one ends well; returns their results."""
+    from vqa_tpu_torch.parallel.dryrun import wait_ranks
+
+    outs = wait_ranks(procs, PAR_TIMEOUT)
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"  {tag} rank {rank}: {line}")
+        require(p.returncode == 0, f"phase 16 ({tag}): rank {rank} exited with {p.returncode}")
+    results = []
+    for rank in range(PAR_RANKS):
+        with open(os.path.join(work, f"{tag}.rank{rank}.json")) as f:
+            results.append(json.load(f))
+    for rank, res in enumerate(results):
+        for label, tol in (("f32", GRAD_F32_TOL), ("bf16", GRAD_BF16_TOL)):
+            cmp = res[label]
+            log(f"parallel ({tag}): rank {rank} {label} step against one process: loss "
+                f"{cmp['loss']:.6f} vs {cmp['ref_loss']:.6f} (rel {cmp['loss_rel']:.3g}), "
+                f"worst max |grad diff| / max |grad| {cmp['worst']} {cmp['worst_rel']:.3g} "
+                f"(tolerance {tol:g})")
+            require(cmp["loss_rel"] <= tol and cmp["worst_rel"] <= tol,
+                    f"phase 16 ({tag}): rank {rank} {label} step disagrees with one process")
+    return results
+
+
+def parallel_rank(path: str) -> int:
+    """One rank of phase 16 (``--parallel-rank PATH``): joins the process
+    group, builds the model of ``PATH.json`` from its seed, reads
+    ``PATH.pt`` (the batch and the reference), holds its gradients of an f32
+    and a bf16 step (averaged over the data group, gathered over the model
+    group) against the reference, counts the kernels of one full step and
+    times PAR_TIMED_STEPS more."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vqa_tpu_torch.models.wrapper import set_model
+    from vqa_tpu_torch.ops.kernels import _build
+    from vqa_tpu_torch.parallel import mesh as mesh_lib
+    from vqa_tpu_torch.training.optim import make_optimizer
+    from vqa_tpu_torch.training.state import (
+        TrainState, backward_step, joint_loss, make_train_step, reduce_over_data)
+
+    t_rank = time.monotonic()
+    full_precision_products()
+    world = mesh_lib.init_distributed("cuda")
+    try:
+        with open(path + ".json") as f:
+            spec = json.load(f)
+        mesh = mesh_lib.make_mesh(n_model=spec["n_model"])
+        model = set_model(**spec["dims"], use_pallas=True, device=world.device,
+                          generator=torch.Generator().manual_seed(spec["seed"]))
+        mesh_lib.shard_params(model, mesh)
+        opt = make_optimizer(model, lr=TRAIN_LR, max_norm=TRAIN_CLIP)
+        state = TrainState(model, opt, seed=RUN_SEED)
+        mesh_lib.replicate_global(mesh, state)
+        print(f"joined, built and replicated the model in "
+              f"{time.monotonic() - t_rank:.1f} s", flush=True)
+        inputs = torch.load(path + ".pt", weights_only=True)
+        local = {k: v.to(world.device)
+                 for k, v in mesh_lib.shard_batch(mesh, inputs["batch"]).items()}
+        out = {"backend": world.backend}
+        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            m = backward_step(model, local, RUN_SEED, 0, dtype, joint_loss,
+                              mesh_lib.axis_rank(mesh, "data"),
+                              mesh_lib.data_token_count(mesh))
+            reduce_over_data(model, m, mesh)
+            grads = mesh_lib.gather_shards(
+                {n: p.grad for n, p in model.named_parameters()},
+                getattr(model, "tp_layout", {}), getattr(model, "tp_shard", None))
+            ref = inputs["ref"][label]
+            rel = {}
+            for n, g in grads.items():
+                if n.endswith(PAR_NOISE):
+                    continue
+                want = ref["grads"][n].to(world.device)
+                rel[n] = ((g - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+            worst = max(rel, key=rel.get)
+            loss = m["loss"].item()
+            out[label] = {"loss": loss, "ref_loss": ref["loss"],
+                          "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                          "worst": worst, "worst_rel": rel[worst]}
+        step = make_train_step(model, opt, compute_dtype=torch.bfloat16, mesh=mesh)
+        _build.reset_launches()
+        step(state, local)
+        torch.cuda.synchronize()
+        out["step_launches"] = dict(_build.LAUNCHES)
+        mesh_lib.barrier()
+        t0 = time.monotonic()
+        for _ in range(PAR_TIMED_STEPS):
+            step(state, local)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.monotonic() - t0) / PAR_TIMED_STEPS * 1e3
+        with open(f"{path}.rank{world.rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -556,7 +800,15 @@ def main() -> int:
                              f"B={TIME_BATCH} forward, one "
                              f"B={DECODE_TIME_BATCH} beam decode and one "
                              f"B={TRAIN_TIME_BATCH} training step")
+    parser.add_argument("--parallel-rank", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.parallel_rank:
+        return parallel_rank(args.parallel_rank)
+    return run(args)
+
+
+def run(args) -> int:
+    """The smoke run's phases (the module docstring)."""
     # -- 1. device ---------------------------------------------------------
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -588,9 +840,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    full_precision_products()
 
     # -- 2. build ----------------------------------------------------------
     phase("2 build")
@@ -1357,10 +1607,7 @@ def main() -> int:
 
     # -- 7. train the full-width MTL model on Loader batches ----------------
     phase("7 train")
-    mtl_dims = dict(encoder_type="base", predictor_type="base", decoder_type="butd",
-                    ntoken=NTOKEN, v_dim=V_DIM, embed_dim=EMBED, hidden_dim=HIDDEN,
-                    decoder_hidden_dim=HIDDEN, ans_dim=ANS, c_len=C_LEN,
-                    att_type="new", use_mtl=True)   # dropout 0.5 / 0.2, the defaults
+    mtl_dims = MTL_DIMS
     mtl = set_model(**mtl_dims, use_pallas=True,
                     generator=torch.Generator().manual_seed(2))
     state = TrainState(mtl, make_optimizer(mtl, lr=TRAIN_LR, max_norm=TRAIN_CLIP),
@@ -2307,6 +2554,11 @@ def main() -> int:
                 f"{CLI_VAL_Q} questions, checkpoints), --mode val "
                 f"{cli_wall[f'config4_{head}_val']:.2f} s wall, val score "
                 f"{float(scores.mean()):.4f} [{card}]")
+    # -- 16. data-parallel MTL training over two processes on the card ------
+    phase("16 parallel")
+    par_launches = parallel_phase(card, int8_feed, gen)
+    torch.cuda.empty_cache()
+
     phase("end")
     log(f"total wall time {time.monotonic() - t_start:.1f} s")
 
@@ -2315,7 +2567,7 @@ def main() -> int:
              "serve_h1000": h1000_launches, "train_h500": h500_launches,
              "regat_train": regat_train_launches, "gcn_lstm_train": lstm_train_launches,
              "gcn_lstm_decode": lstm_dec_launches, "qcap_serve": qcap_launches,
-             "select_train": select_launches,
+             "select_train": select_launches, "parallel_rank0": par_launches,
              **{f"cli_{k}": v for k, v in cli_launches.items()}, "cli": cli_total}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
                 "launches": paths[MAIN_PATH[name]][name],

@@ -365,9 +365,9 @@ def test_cli_mtl_train_resume_and_decode(workdir):
 
 def test_cli_needs_a_card_or_device_cpu(workdir, tmp_path, monkeypatch):
     """Without CUDA and without --device cpu the entry point raises, the
-    max-relevance strategy (--train_strategy select) included; the option
-    the port does not hold (--n_model_shards 2) raises
-    NotImplementedError."""
+    max-relevance strategy (--train_strategy select) included; a
+    tensor-parallel axis (--n_model_shards 2) wider than the world of one
+    process raises, as JAX's make_mesh does."""
     _, root = workdir
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -379,5 +379,5 @@ def test_cli_needs_a_card_or_device_cpu(workdir, tmp_path, monkeypatch):
               "select", "--predictor_type", "q-cap", "--decoder_type", "base"]
     with pytest.raises(RuntimeError, match="cpu"):
         port_main.main(common_args(root, select, None))
-    with pytest.raises(NotImplementedError, match="n_model_shards"):
+    with pytest.raises(ValueError, match="degenerate mesh 0x2 on 1"):
         port_main.main(common_args(root, flags) + ["--n_model_shards", "2"])

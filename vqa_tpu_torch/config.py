@@ -133,9 +133,9 @@ def parse_args(argv=None):
 
     # additions of the JAX package (absent in the reference)
     parser.add_argument("--n_model_shards", type=int, default=1,
-                        help="tensor-parallel axis size of the device mesh "
-                             "(not ported: the port runs on one device and "
-                             "raises above 1)")
+                        help="tensor-parallel axis size of the process "
+                             "mesh (ranks that slice the wide heads; the "
+                             "world size must divide by it)")
     parser.add_argument("--train_strategy", type=str, default="joint",
                         help="joint | select (Q-Relevant max-relevance "
                              "backprop over every candidate caption)")

@@ -1,6 +1,5 @@
 """Host-side batch feed with background prefetch (counterpart of
-``vqa_tpu/data/loader.py`` ``Loader`` and ``prefetch_to_device``, without
-multi-host sharding).
+``vqa_tpu/data/loader.py`` ``Loader`` and ``prefetch_to_device``).
 
 - Fixed shapes: every batch has exactly ``batch_size`` rows; a short tail
   batch repeats its first row and carries ``nvalid``.
@@ -9,6 +8,12 @@ multi-host sharding).
   space, as the max-relevance feed needs (``get_batch_all`` takes question
   indices of a dataset whose ``len`` counts five captions a question).
 - Pipelined: a background thread assembles the next batches.
+- Sharded over processes (``num_shards``, ``shard_id``; ``for_process``
+  takes them from a mesh's ``data`` axis): every shard draws the same
+  permutation and takes the strided slice ``order[shard_id::num_shards]``,
+  wrap-padded to ``shard_length`` so that every shard runs the same number
+  of batches (unequal counts would deadlock lockstep collectives).
+  ``batch_size`` is then the batch of one shard.
 - Caption length bucketing (``length_bucket``): samples whose ``cap_len``
   falls in the same bucket form a batch whose caption axis is cut to the
   bucket's bound + 1, so the decoder's scan runs fewer steps. Every dropped
@@ -36,6 +41,8 @@ class Loader:
                                               Dict[str, np.ndarray]]] = None,
                  batch_method: str = "get_batch",
                  length: Optional[int] = None,
+                 num_shards: int = 1,
+                 shard_id: int = 0,
                  length_bucket: bool = False,
                  bucket_bounds: tuple = (8, 12, 16, 20)):
         self.dataset = dataset
@@ -48,9 +55,18 @@ class Loader:
         self.transform = transform
         self.batch_method = batch_method
         self.length = length if length is not None else len(dataset)
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard {shard_id} of {num_shards}")
+        self.num_shards = num_shards
+        self.shard_id = shard_id
         self.length_bucket = length_bucket
         self.bucket_bounds = tuple(sorted(bucket_bounds))
         if length_bucket:
+            if num_shards != 1:
+                raise ValueError(
+                    "length_bucket with sharding would need synchronized "
+                    "bucket schedules (different caption lengths per shard "
+                    "deadlock lockstep collectives); disable one of them")
             if getattr(dataset, "cap_lens", None) is None:
                 raise ValueError("length_bucket needs dataset.cap_lens "
                                  "(a caption dataset)")
@@ -61,6 +77,26 @@ class Loader:
                 self.bucket_bounds = tuple(
                     sorted(set(self.bucket_bounds) | {max_len}))
 
+    @classmethod
+    def for_process(cls, dataset, batch_size: int, mesh=None, **kw):
+        """A Loader over this process's shard: the shard of its rank on the
+        mesh's ``data`` axis (ranks of one ``model`` group see the same
+        rows), or of its rank in the world without a mesh."""
+        import torch.distributed as dist
+        if mesh is not None:
+            n, r = mesh.size(0), mesh.get_local_rank("data")
+        elif dist.is_initialized():
+            n, r = dist.get_world_size(), dist.get_rank()
+        else:
+            n, r = 1, 0
+        return cls(dataset, batch_size, num_shards=n, shard_id=r, **kw)
+
+    @property
+    def shard_length(self) -> int:
+        """Samples this shard iterates: the same ceil(length / num_shards)
+        for every shard (== length unsharded)."""
+        return -(-self.length // self.num_shards)
+
     def __len__(self) -> int:
         if self.length_bucket:
             counts = self._bucket_counts()
@@ -68,12 +104,12 @@ class Loader:
                 return sum(c // self.batch_size for c in counts)
             return sum(-(-c // self.batch_size) for c in counts if c)
         if self.drop_last:
-            return self.length // self.batch_size
-        return -(-self.length // self.batch_size)
+            return self.shard_length // self.batch_size
+        return -(-self.shard_length // self.batch_size)
 
     @property
     def num_samples(self) -> int:
-        return self.length
+        return self.shard_length
 
     def _bucket_of(self, lens: np.ndarray) -> np.ndarray:
         """Index of the first bound >= len (longer lengths share the last)."""
@@ -95,8 +131,14 @@ class Loader:
         return self.transform(batch) if self.transform is not None else batch
 
     def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        # an epoch-stable permutation: every shard derives the same order
         order = (self.rng.permutation(self.length) if self.shuffle
                  else np.arange(self.length))
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards]
+            short = self.shard_length - len(order)
+            if short > 0:     # wrap-pad so that every shard runs equal batches
+                order = np.concatenate([order, order[:short]])
         plan = []                               # (idx [batch_size], nvalid, bound)
         if self.length_bucket:
             which = self._bucket_of(np.asarray(self.dataset.cap_lens)[order])

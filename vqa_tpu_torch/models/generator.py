@@ -38,6 +38,16 @@ from vqa_tpu_torch.ops.linear import Dense
 from vqa_tpu_torch.ops.rnn import RNNCell
 
 
+def token_mean(total: torch.Tensor, count: torch.Tensor,
+               token_count=None) -> torch.Tensor:
+    """``total / max(count, 1)``, the caption CE's mean over valid tokens.
+    ``token_count`` maps the batch's count to the one to divide by (a
+    data-parallel step's: the mean count of its data group)."""
+    if token_count is not None:
+        count = token_count(count)
+    return total / torch.clamp(count, min=1.0)
+
+
 def _out(state):
     """The output h of a cell's carry (an LSTM carries (h, c))."""
     return state[0] if isinstance(state, tuple) else state
@@ -111,7 +121,8 @@ class DecoderBase(nn.Module):
         raise NotImplementedError
 
     def caption_loss(self, embed: Dict[str, torch.Tensor], *,
-                     seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                     seed: Optional[int] = None,
+                     token_count=None) -> Dict[str, torch.Tensor]:
         """Teacher-forced masked caption CE (``forward`` +
         ``wrapper.ce_for_language_model`` in one), dropout active in
         training mode.
@@ -122,7 +133,8 @@ class DecoderBase(nn.Module):
         v_mean gates are computed once. The time axis follows ``embed['c']``,
         so a length-bucketed batch runs fewer steps for the same loss.
         ``seed``: the scan's 32-bit dropout seed (drawn from torch's CPU
-        generator when None). Returns {'loss', 'mask_sum'}.
+        generator when None); ``token_count``: see :func:`token_mean`.
+        Returns {'loss', 'mask_sum'} (the batch's own count).
         """
         v, caption = embed["v"], embed["c"]
         steps = caption.shape[1] - 1
@@ -160,7 +172,7 @@ class DecoderBase(nn.Module):
         target = embed["c_target"][:, 1:steps + 1]
         nll_sum = self._vocab_ce_sum(feats, target, mask, acc_dtype)
         mask_sum = mask.sum()
-        return {"loss": nll_sum / torch.clamp(mask_sum, min=1.0),
+        return {"loss": token_mean(nll_sum, mask_sum, token_count),
                 "mask_sum": mask_sum}
 
     def _fused_scan_ok(self, v_gates) -> bool:

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from vqa_tpu_torch.models.encoder import (
     BaseEncoder, CaptionEncoder, RelationEncoder)
-from vqa_tpu_torch.models.generator import set_decoder
+from vqa_tpu_torch.models.generator import set_decoder, token_mean
 from vqa_tpu_torch.models.predictor import (
     BaseCaptionPredictor, BasePredictor, PredictorwithCaption)
 
@@ -52,14 +52,17 @@ def instance_bce_with_logits(predict: torch.Tensor,
 
 
 def ce_for_language_model(predict: torch.Tensor, target: torch.Tensor,
-                          mask: torch.Tensor) -> torch.Tensor:
+                          mask: torch.Tensor, token_count=None
+                          ) -> torch.Tensor:
     """Masked token cross-entropy, the mean over valid positions
     (wrapper.py:68-79): predict [B, T, ntoken], target [B, T], mask [B, T];
-    ``lse - logit[target]`` in at least f32."""
+    ``lse - logit[target]`` in at least f32. ``token_count``: see
+    :func:`token_mean`."""
     predict = _at_least_f32(predict)
     lse = torch.logsumexp(predict, dim=-1)
     tgt = torch.gather(predict, -1, target[..., None].long())[..., 0]
-    return torch.sum((lse - tgt) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return token_mean(torch.sum((lse - tgt) * mask), torch.sum(mask),
+                      token_count)
 
 
 class VQAModel(nn.Module):
@@ -100,22 +103,24 @@ class VQAModel(nn.Module):
         return predict, caption
 
     def get_loss(self, batch: Dict[str, torch.Tensor], *,
-                 seed: Optional[int] = None
+                 seed: Optional[int] = None, token_count=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The joint training loss and its metrics (wrapper.py:114-152):
         ``train/loss`` (VQA BCE), ``train/score`` (summed soft score) and
         ``train/cap/loss`` (caption CE), as device tensors. With ``log_vars``
         the loss is ``sum_i exp(-s_i) L_i + s_i``. Dropout follows the
-        module's mode; ``seed`` is the caption scan's dropout seed."""
+        module's mode; ``seed`` is the caption scan's dropout seed;
+        ``token_count`` the caption CE's count map (:func:`token_mean`)."""
         embed = self.encoder(batch)
         loss_cap = None
         if self.generator is not None and self.fused_cap_loss:
-            loss_cap = self.generator.caption_loss(embed, seed=seed)["loss"]
+            loss_cap = self.generator.caption_loss(
+                embed, seed=seed, token_count=token_count)["loss"]
         elif self.generator is not None:
             caption = self.generator(embed)
             loss_cap = ce_for_language_model(caption["predict"],
                                              caption["target"],
-                                             caption["mask"])
+                                             caption["mask"], token_count)
         predict = self.predictor(embed) if self.predictor is not None else None
         log_vars = self.log_vars if self.mtl_active else None
         loss = torch.zeros((), dtype=torch.float32, device=embed["v"].device)

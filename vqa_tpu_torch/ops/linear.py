@@ -17,6 +17,11 @@ Counterparts of ``vqa_tpu/ops/linear.py``:
   the correlated graph conv, and its ``similarity_parts`` form.
 - ``LReLUNet``: a bias-free Linear and a LeakyReLU, the Q-Relevant head's
   layer, held as the reference's Sequential ``main`` (``main.0.weight``).
+
+``WNDense`` and ``Dense`` take a tensor-parallel slice of their output
+dimension (``parallel/mesh.py`` ``shard_params`` sets ``tp``): the product
+with the slice, then the all-gather of the slices; ``WNDense``'s weight norm
+sums its squares over every slice.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ def uniform_(t: torch.Tensor, bound: float,
 class WNDense(nn.Module):
     """Linear layer with scalar weight normalization (torch dim=None)."""
 
+    tp = None     # a parallel.mesh.ModelShard once shard_params slices it
+
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -55,9 +62,16 @@ class WNDense(nn.Module):
 
     def weight(self, dtype: torch.dtype) -> torch.Tensor:
         """``g * rsqrt(sum(v^2)) * v`` [out, in] in ``dtype``. The scale is
-        computed in the parameter dtype over the full kernel, as in JAX."""
+        computed in the parameter dtype over the full kernel, as in JAX; a
+        sharded layer returns its slice, the sum all-reduced over the
+        slices."""
         v = self.weight_v
-        scale = self.weight_g * torch.rsqrt(torch.sum(v * v))
+        sq = torch.sum(v * v)
+        if self.tp is not None:
+            sq = self.tp.total(sq)
+        scale = self.weight_g * torch.rsqrt(sq)
+        if self.tp is not None:
+            scale = self.tp.enter(scale)
         return (scale * v).to(dtype)
 
     def forward(self, x: torch.Tensor, *,
@@ -71,6 +85,8 @@ class WNDense(nn.Module):
         entry); else the product is ``(x * x_scale) @ W.T``, through the
         dequant-GEMM kernel when ``use_kernel`` and the kernel takes the
         shape (``feed_gemm.supports``), else its plain version."""
+        if self.tp is not None:
+            x = self.tp.enter(x)
         if x.dtype == torch.int8:
             if x_scale is None:
                 raise ValueError("an int8 input needs x_scale")
@@ -89,7 +105,8 @@ class WNDense(nn.Module):
             y = torch.matmul(x, self.weight(x.dtype).t())
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        return F.relu(y) if relu else y
+        y = F.relu(y) if relu else y
+        return y if self.tp is None else self.tp.gather(y)
 
     def int8_forward(self, x_q: torch.Tensor, x_scale: torch.Tensor, *,
                      use_pallas: bool = False,
@@ -159,6 +176,8 @@ class Dense(nn.Module):
     given; ``zero_bias`` starts the bias at 0; ``bias=False`` declares
     none."""
 
+    tp = None     # a parallel.mesh.ModelShard once shard_params slices it
+
     def __init__(self, in_dim: int, out_dim: int,
                  bound: Optional[float] = None, zero_bias: bool = False, *,
                  bias: bool = True,
@@ -174,8 +193,11 @@ class Dense(nn.Module):
                 else uniform_(torch.empty(out_dim), default, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         y = torch.matmul(x, self.weight.to(x.dtype).t())
-        return y if self.bias is None else y + self.bias.to(x.dtype)
+        y = y if self.bias is None else y + self.bias.to(x.dtype)
+        return y if self.tp is None else self.tp.gather(y)
 
 
 class LReLUNet(nn.Module):

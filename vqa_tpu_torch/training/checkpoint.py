@@ -17,6 +17,13 @@ them in a plain list that ``state_dict`` does not see), so
 Writes are atomic: the payload goes to a temporary file beside the target,
 is flushed and fsynced, then renamed over it, so an interrupted save leaves
 the previous file (or none), never a partial one.
+
+Under several processes rank 0 alone writes. A tensor-parallel model's
+slices (``parallel/mesh.py`` ``shard_params``), and their Adamax moments,
+are gathered into full tensors first (a collective: every rank calls the
+save), and a load cuts the full tensors to the slices the model holds, so
+a checkpoint written under any mesh loads under any other, and in one
+process.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from vqa_tpu_torch.parallel import mesh as mesh_lib
 from vqa_tpu_torch.training.state import TrainState
 
 
@@ -43,11 +51,44 @@ def _to_host(tree: Any) -> Any:
     return tree
 
 
-def _host_payload(state: TrainState, epoch: int,
-                  best_score: float = 0.0) -> Dict[str, Any]:
-    """The checkpoint payload of ``state``, copied to the host."""
-    return {"model": _to_host(state.model.state_dict()),
-            "optimizer": _to_host(state.optimizer.adamax.state_dict()),
+def _moment_layout(state: TrainState) -> Dict[str, int]:
+    """The sharded dimension of each Adamax moment, by its key
+    ``{optimizer index}.{moment}`` (the index is the parameter's position
+    in the optimizer's groups)."""
+    layout = getattr(state.model, "tp_layout", {})
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {f"{i}.{k}": layout[names[id(p)]]
+            for i, p in enumerate(state.optimizer.params)
+            if names[id(p)] in layout for k in ("exp_avg", "exp_inf")}
+
+
+def _map_moments(opt_state: Dict[str, Any], state: TrainState,
+                 fn) -> Dict[str, Any]:
+    """``opt_state`` with its sharded moments replaced by
+    ``fn(moments, layout, shard)`` (``mesh.gather_shards`` or
+    ``split_shards``)."""
+    layout = _moment_layout(state)
+    if not layout:
+        return opt_state
+    moments = {f"{i}.{k}": v for i, st in opt_state["state"].items()
+               for k, v in st.items() if f"{i}.{k}" in layout}
+    mapped = fn(moments, layout, state.model.tp_shard)
+    per = {i: {k: mapped.get(f"{i}.{k}", v) for k, v in st.items()}
+           for i, st in opt_state["state"].items()}
+    return {**opt_state, "state": per}
+
+
+def _host_payload(state: TrainState, epoch: int, best_score: float = 0.0
+                  ) -> Optional[Dict[str, Any]]:
+    """The checkpoint payload of ``state`` with full tensors, copied to the
+    host; None on a rank that does not write (the gather of the slices is
+    collective, so every rank calls this)."""
+    model = mesh_lib.full_state_dict(state.model)
+    optimizer = _map_moments(state.optimizer.adamax.state_dict(), state,
+                             mesh_lib.gather_shards)
+    if not mesh_lib.is_main():
+        return None
+    return {"model": _to_host(model), "optimizer": _to_host(optimizer),
             "step": int(state.step), "seed": int(state.seed),
             "epoch": int(epoch), "best_score": float(best_score)}
 
@@ -74,7 +115,10 @@ def _write_payload(path: str, payload: Dict[str, Any]) -> None:
 
 def save_checkpoint(path: str, state: TrainState, epoch: int,
                     best_score: float = 0.0) -> None:
-    _write_payload(path, _host_payload(state, epoch, best_score))
+    """Write ``state`` to ``path`` (rank 0; every rank calls it)."""
+    payload = _host_payload(state, epoch, best_score)
+    if payload is not None:
+        _write_payload(path, payload)
 
 
 class Checkpointer:
@@ -89,11 +133,11 @@ class Checkpointer:
         self._pending: List[Future] = []
 
     def save_checkpoint_async(self, path: str, state: TrainState, epoch: int,
-                              best_score: float = 0.0) -> Future:
-        fut = self._pool.submit(_write_payload, path,
-                                _host_payload(state, epoch, best_score))
-        self._pending.append(fut)
-        return fut
+                              best_score: float = 0.0) -> None:
+        payload = _host_payload(state, epoch, best_score)
+        if payload is not None:
+            self._pending.append(
+                self._pool.submit(_write_payload, path, payload))
 
     def wait_for_checkpoints(self) -> None:
         """Join the outstanding saves, raising the first one's error."""
@@ -125,8 +169,10 @@ def load_checkpoint(path: str, state: Optional[TrainState] = None
             f"{path} has no optimizer state (a parameters-only checkpoint): "
             "it supports eval/decode (load_params) or a warm start "
             "(merge_params), not a training resume")
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.adamax.load_state_dict(payload["optimizer"])
+    state.model.load_state_dict(
+        mesh_lib.local_state_dict(state.model, payload["model"]))
+    state.optimizer.adamax.load_state_dict(
+        _map_moments(payload["optimizer"], state, mesh_lib.split_shards))
     state.step = int(payload["step"])
     state.seed = int(payload["seed"])
     return {"state": state, "epoch": int(payload["epoch"]),
@@ -154,7 +200,9 @@ def restore_params(model: torch.nn.Module,
     encoder's GCN convs (``encoder.*_encoder.conv*``), which a reference
     checkpoint lacks: those ``params`` misses keep the model's values, as
     ``merge_params`` keeps them. Any other missing or unexpected key
-    raises ``KeyError`` naming it."""
+    raises ``KeyError`` naming it. A tensor-parallel model takes its slices
+    of the full tensors."""
+    params = mesh_lib.local_state_dict(model, params)
     own = model.state_dict()
     fill = [k for k in own if k not in params and _GCN_CONV.match(k)]
     missing = [k for k in own if k not in params and k not in fill]

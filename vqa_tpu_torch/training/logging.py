@@ -6,6 +6,7 @@ series (the reference's TensorBoard tags ``train/loss``, ``train/score``,
 ``train/cap/loss``, ``train/eval``, ``val/vqa/score``). Scalars always go
 to a JSONL file (``scalars.jsonl``, which ``scripts/gate_check.py`` reads);
 TensorBoard event files are written too when tensorboard is importable.
+``NullLog`` stands in for both on a rank that writes nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +37,19 @@ class Logger:
     def show(self, msg: str) -> None:
         print(msg)
         self.write(msg)
+
+    def close(self) -> None:
+        self.log_file.close()
+
+
+class NullLog:
+    """The logger and metrics writer of a rank that writes no artifacts
+    (under several processes rank 0 alone logs): every call does nothing."""
+
+    def write(self, *args, **kwargs) -> None:
+        pass
+
+    show = add_scalar = add_scalars = add_hparams = flush = close = write
 
 
 class MetricsWriter:

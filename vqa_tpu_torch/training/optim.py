@@ -7,7 +7,11 @@
   lr)``. Training ``log_vars`` is the JAX package's deliberate divergence
   from the reference, which left them out of every group.
 - Global-norm clip, ``torch.nn.utils.clip_grad_norm_`` (coefficient
-  ``max_norm / (norm + 1e-6)``, applied when below 1).
+  ``max_norm / (norm + 1e-6)``, applied when below 1). Over a
+  tensor-parallel model (``parallel/mesh.py`` ``shard_params``) each
+  sharded gradient's sum of squares is all-reduced over the ``model``
+  group and each replicated one counts once, so the coefficient is
+  ``clip_grad_norm_``'s on the full model.
 - StepLR by epoch: the factor ``gamma ** ((epoch - warm_up) // step_size)``
   after ``warm_up`` epochs, with ``epoch = update // steps_per_epoch``.
 
@@ -16,9 +20,10 @@
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 
@@ -42,13 +47,18 @@ class Optimizer:
 
     def __init__(self, adamax: torch.optim.Adamax, max_norm: float,
                  warm_up: int, step_size: int, gamma: float,
-                 steps_per_epoch: int):
+                 steps_per_epoch: int, sharded: List[torch.Tensor] = (),
+                 model_group: Optional[object] = None):
         self.adamax = adamax
         self.max_norm = max_norm
         self.warm_up, self.step_size, self.gamma = warm_up, step_size, gamma
         self.steps_per_epoch = steps_per_epoch
         self.params: List[torch.Tensor] = [
             p for g in adamax.param_groups for p in g["params"]]
+        # the parameters that are slices of a tensor-parallel layer, and
+        # the group that holds their other slices
+        self.sharded = {id(p) for p in sharded}
+        self.model_group = model_group
 
     def lr_factor(self, update: int) -> float:
         return steplr_factor(update // self.steps_per_epoch, self.warm_up,
@@ -60,8 +70,24 @@ class Optimizer:
         factor = self.lr_factor(update)
         for g in self.adamax.param_groups:
             g["lr"] = g["base_lr"] * factor
-        norm = nn.utils.clip_grad_norm_(self.params, self.max_norm)
+        norm = self.clip()
         self.adamax.step()
+        return norm
+
+    def clip(self) -> torch.Tensor:
+        """Scale the gradients by the global-norm clip's coefficient;
+        returns the norm before clipping."""
+        if self.model_group is None:
+            return nn.utils.clip_grad_norm_(self.params, self.max_norm)
+        grads = [(p.grad, id(p) in self.sharded) for p in self.params
+                 if p.grad is not None]
+        whole = sum(g.float().pow(2).sum() for g, s in grads if not s)
+        split = sum(g.float().pow(2).sum() for g, s in grads if s)
+        dist.all_reduce(split, group=self.model_group)
+        norm = torch.sqrt(whole + split)
+        coef = torch.clamp(self.max_norm / (norm + 1e-6), max=1.0)
+        for g, _ in grads:
+            g.mul_(coef)
         return norm
 
 
@@ -71,7 +97,8 @@ def make_optimizer(model: nn.Module, lr: float, lr_vqa: float = 0.0,
                    steps_per_epoch: int = 1, b1: float = 0.9,
                    b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
     """The full update (clip -> Adamax by groups -> StepLR) for ``model``'s
-    parameters, named as in ``model.named_parameters()``."""
+    parameters, named as in ``model.named_parameters()``; a model sharded
+    by ``parallel.mesh.shard_params`` clips over its full gradient."""
     rates = {"enc": lr, "vqa": max(lr_vqa, lr), "cap": max(lr_cap, lr)}
     groups: Dict[str, List[torch.Tensor]] = {k: [] for k in rates}
     for name, p in model.named_parameters():
@@ -79,5 +106,10 @@ def make_optimizer(model: nn.Module, lr: float, lr_vqa: float = 0.0,
     param_groups = [{"params": ps, "lr": rates[k], "base_lr": rates[k],
                      "name": k} for k, ps in groups.items() if ps]
     adamax = torch.optim.Adamax(param_groups, lr=lr, betas=(b1, b2), eps=eps)
+    layout = getattr(model, "tp_layout", {})
+    shard = getattr(model, "tp_shard", None)
     return Optimizer(adamax, max_norm, warm_up, step_size, gamma,
-                     steps_per_epoch)
+                     steps_per_epoch,
+                     sharded=[p for n, p in model.named_parameters()
+                              if n in layout],
+                     model_group=shard.group if shard is not None else None)

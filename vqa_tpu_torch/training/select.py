@@ -56,14 +56,16 @@ def _attended_v(embed: Dict[str, torch.Tensor],
 
 
 def get_select_loss(mdl: VQAModel, batch: Dict[str, torch.Tensor],
-                    seed: Optional[int] = None
+                    seed: Optional[int] = None, token_count=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The joint loss with each question's most relevant caption selected.
 
     ``batch``: the visual feed (``img``, or ``img_q`` / ``img_scale``),
     ``q`` [B, q_len], ``a`` [B, A], ``c_all`` [B, n_cap, c_len] and
     ``cap_len_all`` [B, n_cap]. Dropout follows the module's mode; ``seed``
-    is unused (the caption loss runs no counter-based scan). Returns the
+    is unused (the caption loss runs no counter-based scan);
+    ``token_count``: the caption CE's count map (``generator.token_mean``).
+    Returns the
     loss and ``train/loss``, ``train/score`` (of the selected candidates'
     predictions) and, with a decoder, ``train/cap/loss``.
     """
@@ -103,7 +105,8 @@ def get_select_loss(mdl: VQAModel, batch: Dict[str, torch.Tensor],
                                  "c_target": c_sel,
                                  "cap_len": cap_len_all[rows, sel]})
         loss_cap = ce_for_language_model(caption["predict"],
-                                         caption["target"], caption["mask"])
+                                         caption["target"], caption["mask"],
+                                         token_count)
         writes["train/cap/loss"] = loss_cap
         loss = loss + (torch.exp(-log_vars[1]) * loss_cap + log_vars[1]
                        if log_vars is not None else loss_cap)
@@ -111,11 +114,11 @@ def get_select_loss(mdl: VQAModel, batch: Dict[str, torch.Tensor],
 
 
 def make_train_select_step(model: VQAModel, optimizer: Optimizer,
-                           compute_dtype: Optional[torch.dtype] = torch.bfloat16
-                           ) -> Callable[[TrainState, Dict],
-                                         Dict[str, torch.Tensor]]:
+                           compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+                           mesh=None) -> Callable[[TrainState, Dict],
+                                                  Dict[str, torch.Tensor]]:
     """The max-relevance training step, with ``make_train_step``'s contract
     (the casts over f32 masters, the clip, Adamax, the seeds of
-    ``step_seeds``) and :func:`get_select_loss` as its loss."""
+    ``step_seeds``, the mesh) and :func:`get_select_loss` as its loss."""
     return make_train_step(model, optimizer, compute_dtype,
-                           loss_fn=get_select_loss)
+                           loss_fn=get_select_loss, mesh=mesh)

@@ -18,6 +18,26 @@ step), as ``fold_in(rng, step)``: torch's generators for the encoder's and
 predictor's dropout, and one 32-bit seed for the caption scan's
 counter-based masks, reused by its backward. The step returns its metrics as
 device tensors and issues no host synchronisation.
+
+Over a mesh (``parallel/mesh.py``; ``mesh=`` of :func:`make_train_step`)
+the step is JAX's mesh step on the global batch, each data rank holding
+its rows:
+
+- the data rank is folded into both seeds, so the data ranks draw
+  different masks for their rows, and the ranks of one ``model`` group,
+  which compute the same activations, draw the same ones;
+- the caption CE divides by the token count of the global batch (its mean
+  over the data group, ``mesh.data_token_count``), so that the mean of the
+  ranks' losses is the global loss; the per-sample means (the VQA BCE)
+  average right as they are, since the shards' batches are equal;
+- after the backward every gradient, and every metric, is averaged over
+  the data group in one coalesced all-reduce (``train/score``, a sum, is
+  summed); a sharded head's gradients are its slice's.
+
+DDP is not used: its reducer hooks the module's parameters, while the loss
+runs through ``functional_call`` over the compute-dtype casts of them, and
+the caption scan's backward calls ``autograd.grad`` itself, so no hook of
+DDP's would see these gradients.
 """
 
 from __future__ import annotations
@@ -29,6 +49,7 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from vqa_tpu_torch.models.wrapper import VQAModel
+from vqa_tpu_torch.parallel import mesh as mesh_lib
 from vqa_tpu_torch.training.optim import Optimizer
 
 _MASK64 = (1 << 64) - 1
@@ -42,9 +63,13 @@ def _mix64(x: int) -> int:
     return z ^ (z >> 31)
 
 
-def step_seeds(run_seed: int, step: int) -> Tuple[int, int]:
-    """(torch generator seed, 32-bit caption-scan seed) of one step."""
+def step_seeds(run_seed: int, step: int, data_rank: int = 0
+               ) -> Tuple[int, int]:
+    """(torch generator seed, 32-bit caption-scan seed) of one step on one
+    data rank (rank 0: the single-process seeds)."""
     s = _mix64((run_seed & _MASK64) ^ _mix64(step))
+    if data_rank:
+        s = _mix64(s ^ _mix64(data_rank ^ 0xDA7A0000))
     return s >> 1, _mix64(s ^ 0x5EED0A77) & 0xFFFFFFFF
 
 
@@ -58,12 +83,15 @@ class TrainState:
         self.seed, self.step = seed, step
 
 
-LossFn = Callable[[VQAModel, Dict, int], Tuple[torch.Tensor, Dict]]
+TokenCount = Optional[Callable[[torch.Tensor], torch.Tensor]]
+LossFn = Callable[[VQAModel, Dict, int, TokenCount],
+                  Tuple[torch.Tensor, Dict]]
 
 
-def joint_loss(model: VQAModel, batch: Dict, seed: int):
+def joint_loss(model: VQAModel, batch: Dict, seed: int,
+               token_count: TokenCount = None):
     """The joint training loss, ``VQAModel.get_loss``."""
-    return model.get_loss(batch, seed=seed)
+    return model.get_loss(batch, seed=seed, token_count=token_count)
 
 
 class _Loss(nn.Module):
@@ -74,8 +102,8 @@ class _Loss(nn.Module):
         self.model = model
         self.loss_fn = loss_fn
 
-    def forward(self, batch, seed):
-        return self.loss_fn(self.model, batch, seed)
+    def forward(self, batch, seed, token_count):
+        return self.loss_fn(self.model, batch, seed, token_count)
 
 
 def _cast_floats(tree: Dict, dtype: Optional[torch.dtype]) -> Dict:
@@ -87,13 +115,17 @@ def _cast_floats(tree: Dict, dtype: Optional[torch.dtype]) -> Dict:
 
 def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
                   compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                  loss_fn: LossFn = joint_loss) -> Dict[str, torch.Tensor]:
-    """The loss of training step ``step`` (dropout active, drawn from (run
-    seed, step)) and its gradients, left in the f32 parameters' ``.grad``.
-    ``loss_fn(model, batch, scan_seed) -> (loss, writes)``. Returns ``loss``
-    and the ``train/*`` writes, detached."""
+                  loss_fn: LossFn = joint_loss, data_rank: int = 0,
+                  token_count: TokenCount = None) -> Dict[str, torch.Tensor]:
+    """The loss of training step ``step`` on data rank ``data_rank``
+    (dropout active, drawn from (run seed, step, data rank)) and its
+    gradients, left in the f32 parameters' ``.grad``. ``loss_fn(model,
+    batch, scan_seed, token_count) -> (loss, writes)``; ``token_count`` maps
+    the batch's caption-token count to the one the caption CE divides by
+    (over a mesh, ``mesh.data_token_count``). Returns ``loss`` and the
+    ``train/*`` writes, detached."""
     model.train()
-    torch_seed, scan_seed = step_seeds(run_seed, step)
+    torch_seed, scan_seed = step_seeds(run_seed, step, data_rank)
     params = {"model." + n: p for n, p in model.named_parameters()}
     buffers = {"model." + n: b for n, b in model.named_buffers()}
     dev = next(iter(params.values())).device
@@ -103,7 +135,7 @@ def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
         loss, writes = functional_call(
             _Loss(model, loss_fn),
             _cast_floats({**params, **buffers}, compute_dtype),
-            (_cast_floats(batch, compute_dtype), scan_seed))
+            (_cast_floats(batch, compute_dtype), scan_seed, token_count))
         for p in model.parameters():
             p.grad = None
         loss.backward()
@@ -112,21 +144,44 @@ def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
     return metrics
 
 
+# metrics that sum over the batch's rows (the others are means)
+SUMMED_METRICS = ("train/score",)
+
+
+def reduce_over_data(model: VQAModel, metrics: Dict[str, torch.Tensor],
+                     mesh) -> None:
+    """Average every gradient and metric over the mesh's data group, in
+    place (one all-reduce); the summed metrics are summed."""
+    n = mesh_lib.axis_size(mesh, "data")
+    if n == 1:
+        return
+    for k in SUMMED_METRICS:
+        if k in metrics:
+            metrics[k] = metrics[k] * n
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    mesh_lib.reduce_data_mean(grads + list(metrics.values()), mesh)
+
+
 def make_train_step(model: VQAModel, optimizer: Optimizer,
                     compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                    loss_fn: LossFn = joint_loss
+                    loss_fn: LossFn = joint_loss, mesh=None
                     ) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics``: one update of ``state.model``.
 
-    ``batch`` holds device tensors (the Loader's keys); ``compute_dtype``
-    None trains in the parameters' own dtype; ``loss_fn`` is the loss (see
-    :func:`backward_step`). Metrics: ``loss`` and the ``train/*`` writes of
-    the loss, plus ``grad_norm``.
+    ``batch`` holds device tensors (the Loader's keys; over a ``mesh``, this
+    data rank's rows); ``compute_dtype`` None trains in the parameters' own
+    dtype; ``loss_fn`` is the loss (see :func:`backward_step`). Metrics:
+    ``loss`` and the ``train/*`` writes of the loss, plus ``grad_norm``, of
+    the global batch.
     """
+    data_rank = mesh_lib.axis_rank(mesh, "data")
+    token_count = mesh_lib.data_token_count(mesh)
 
     def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         metrics = backward_step(model, batch, state.seed, state.step,
-                                compute_dtype, loss_fn)
+                                compute_dtype, loss_fn, data_rank,
+                                token_count)
+        reduce_over_data(model, metrics, mesh)
         metrics["grad_norm"] = optimizer.step(state.step)
         state.step += 1
         return metrics

@@ -11,6 +11,15 @@ without a VQA head) that the first validation always materializes, and
 padded tail rows masked by ``nvalid`` in evaluation. ``train_select`` is
 the same loop over all-candidate batches with the max-relevance step.
 
+Over a mesh (``parallel/mesh.py``; ``mesh=``) each process feeds its own
+shard (``Loader.for_process``): ``train`` slices the tensor-parallel heads
+(``shard_params``), broadcasts rank 0's initial state, steps with the
+gradients averaged over the data group, lets rank 0 alone write the logs
+and checkpoints (every rank takes part in a save, which gathers the
+slices) and ends on a barrier; ``evaluate`` gathers every rank's
+per-sample results and dedupes them by sample id, so the score is exact
+for any world size.
+
 Kept as the JAX package has them, since they change numbers its tests
 compare: with ``batches`` set, the epoch-end average divides by
 ``batches + 1``; and ``val_checkpoint`` 1 (or True) validates every
@@ -29,9 +38,10 @@ import torch
 
 from vqa_tpu_torch.data.loader import prefetch_to_device
 from vqa_tpu_torch.models.wrapper import VQAModel
+from vqa_tpu_torch.parallel import mesh as mesh_lib
 from vqa_tpu_torch.training import optim as optim_lib
 from vqa_tpu_torch.training.checkpoint import Checkpointer, save_checkpoint
-from vqa_tpu_torch.training.logging import Logger, MetricsWriter
+from vqa_tpu_torch.training.logging import Logger, MetricsWriter, NullLog
 from vqa_tpu_torch.training.select import make_train_select_step
 from vqa_tpu_torch.training.state import (
     TrainState, make_eval_step, make_train_step)
@@ -55,40 +65,59 @@ def compute_dtype_of(train_dtype: str) -> Optional[torch.dtype]:
 def evaluate(eval_step, dataloader, device, logger: Optional[Logger] = None,
              writer: Optional[MetricsWriter] = None,
              ans_index: Optional[Dict] = None,
-             save_path: Optional[str] = None):
+             save_path: Optional[str] = None, mesh=None):
     """VQA evaluation over ``dataloader`` (``eval_step`` from
     ``make_eval_step``; batches go to ``device``).
 
     Returns (score, bound), or the per-answer-type metric dict when
     ``ans_index`` is given. Padded tail rows are masked via ``nvalid``.
+    Under several processes (a ``mesh``; one process has none) each
+    rank scores the rows of its loader's shard; then every rank's ids,
+    scores, labels and bounds are gathered and deduplicated by sample id
+    (the shards wrap-pad with repeats), in dataset order, so the score and
+    the answer-type breakdown are those of one process.
     """
-    score = 0.0
-    target_score = 0.0
-    all_score, all_label = [], []
+    all_score, all_label, all_bound, all_id = [], [], [], []
     n = dataloader.num_samples
+    running = 0.0
     start = time.time()
     feed = prefetch_to_device(iter(dataloader), device, keys=MODEL_KEYS)
     for i, batch in enumerate(feed):
         nvalid = int(batch.pop("nvalid"))
+        if "id" in batch:
+            all_id.append(np.asarray(batch["id"])[:nvalid])
         s, label, bound = eval_step(model_batch(batch))
         s = s.float().cpu().numpy()[:nvalid]
-        label = label.cpu().numpy()[:nvalid]
-        bound = bound.float().cpu().numpy()[:nvalid]
-        score += float(s.sum())
-        target_score += float(bound.sum())
         all_score.append(s)
-        all_label.append(label)
+        all_label.append(label.cpu().numpy()[:nvalid])
+        all_bound.append(bound.float().cpu().numpy()[:nvalid])
+        running += float(s.sum())
         if writer:
-            writer.add_scalar("val/vqa/score", score / n, i)
+            writer.add_scalar("val/vqa/score", running / n, i)
 
-    score /= n
-    target_score /= n
+    all_score = np.concatenate(all_score)
+    all_label = np.concatenate(all_label)
+    all_bound = np.concatenate(all_bound)
+    if mesh is not None:
+        if not all_id:
+            raise ValueError("evaluate under several processes needs the "
+                             "sample ids ('id') in the batches")
+        parts = mesh_lib.all_gather_object(
+            (np.concatenate(all_id), all_score, all_label, all_bound))
+        ids, all_score, all_label, all_bound = (
+            np.concatenate([p[k] for p in parts]) for k in range(4))
+        # dedupe the wrap-pad repeats; dataset order for ans_index
+        _, keep = np.unique(ids.astype(np.int64), return_index=True)
+        all_score, all_label, all_bound = (
+            all_score[keep], all_label[keep], all_bound[keep])
+        n = len(keep)
+    # summed in one order on every world size, so the scores agree exactly
+    score = float(all_score.astype(np.float64).sum()) / n
+    target_score = float(all_bound.astype(np.float64).sum()) / n
     if logger:
         t = time.strftime("%H:%M:%S", time.gmtime(time.time() - start))
         logger.show(f"[{t}] evaluate score: {score:.10f} / bound: {target_score:.10f}")
 
-    all_score = np.concatenate(all_score)
-    all_label = np.concatenate(all_label)
     if save_path:
         os.makedirs(save_path, exist_ok=True)
         np.save(os.path.join(save_path, "scores.npy"), all_score)
@@ -137,16 +166,21 @@ def train(model: VQAModel,
           profile_dir: Optional[str] = None,
           profile_steps: tuple = (10, 20),
           train_dtype: str = "float32",
-          step_factory=None) -> TrainState:
+          step_factory=None, mesh=None) -> TrainState:
     """Train ``model`` in place; returns the final TrainState.
 
     ``init_state`` (a resumed state, its optimizer included) replaces the
-    fresh one. ``profile_dir``: a ``torch.profiler`` trace of global steps
-    [profile_steps) goes to ``profile_dir/trace.json``. ``step_factory``:
-    ``(model, optimizer, compute_dtype=) -> step``, ``make_train_step``
-    when None.
+    fresh one; over a tensor-parallel mesh its model must have been sliced
+    (``mesh.shard_params``) before its optimizer was made. ``profile_dir``:
+    a ``torch.profiler`` trace of global steps [profile_steps) goes to
+    ``profile_dir/trace.json``. ``step_factory``: ``(model, optimizer,
+    compute_dtype=, mesh=) -> step``, ``make_train_step`` when None.
+    ``mesh``: train over the mesh's processes (the module docstring); the
+    model stays sliced afterwards.
     """
-    writer = MetricsWriter(save_path, comment=comment)
+    main = mesh_lib.is_main()
+    writer = MetricsWriter(save_path, comment=comment) if main else NullLog()
+    logger = logger if main else NullLog()
     steps_per_epoch = batches if batches else len(train_loader)
     device = next(model.parameters()).device
     # the JAX loop draws one sample batch to initialise its state; drawing
@@ -156,23 +190,30 @@ def train(model: VQAModel,
     if init_state is not None:
         state = init_state
     else:
+        mesh_lib.shard_params(model, mesh)
         optimizer = optim_lib.make_optimizer(
             model, lr=lr, lr_vqa=lr_vqa, lr_cap=lr_cap, max_norm=max_norm,
             warm_up=warm_up, step_size=step_size, gamma=gamma,
             steps_per_epoch=steps_per_epoch)
         state = TrainState(model, optimizer, seed=seed)
+    mesh_lib.replicate_global(mesh, state)
     train_step = (step_factory or make_train_step)(
-        model, state.optimizer, compute_dtype=compute_dtype_of(train_dtype))
+        model, state.optimizer, compute_dtype=compute_dtype_of(train_dtype),
+        mesh=mesh)
     eval_step = make_eval_step(model)
     checkpointer = Checkpointer()
 
     has_predictor = model.predictor is not None
     best_epoch = start_epoch
     best_path = os.path.join(save_path, "best_model.ckpt")
+    # every rank takes part in a save: they share rank 0's view of the file
+    have_best = mesh_lib.broadcast_object(os.path.exists(best_path))
 
     def val(avg_loss, best_score, best_epoch, epoch, start):
+        nonlocal have_best
         if has_predictor:
-            eval_score, bound = evaluate(eval_step, val_loader, device)
+            eval_score, bound = evaluate(eval_step, val_loader, device,
+                                         mesh=mesh)
             t = time.strftime("%H:%M:%S", time.gmtime(time.time() - start))
             logger.show(f"[Epoch {epoch}] avg_loss: {avg_loss:.4f} | "
                         f"score: {eval_score:.10f} ({t})")
@@ -181,7 +222,7 @@ def train(model: VQAModel,
                 save_checkpoint(best_path, state, epoch, eval_score)
                 best_score = eval_score
                 best_epoch = epoch
-            elif not os.path.exists(best_path):
+            elif not have_best:
                 # materialize a best checkpoint on the first validation,
                 # without adopting its score as the threshold
                 save_checkpoint(best_path, state, epoch, eval_score)
@@ -195,10 +236,11 @@ def train(model: VQAModel,
                 save_checkpoint(best_path, state, epoch, -avg_loss)
                 best_score = -avg_loss
                 best_epoch = epoch
-            elif not os.path.exists(best_path):
+            elif not have_best:
                 save_checkpoint(best_path, state, epoch, -avg_loss)
             logger.show(f"[Result] best epoch: {best_epoch}, "
                         f"cap loss: {-best_score:.10f}")
+        have_best = True
         return best_score, best_epoch
 
     profiler = None
@@ -278,6 +320,8 @@ def train(model: VQAModel,
             profiler.stop()
         checkpointer.close()
         writer.close()
+    # every rank sees rank 0's checkpoints before it reads them
+    mesh_lib.barrier()
     return state
 
 
