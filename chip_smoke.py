@@ -14,7 +14,10 @@ Phases, each of which raises (exit code 1) on failure:
 
 1. device: a CUDA card must be present; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the port's CUDA kernels from ``vqa_tpu_torch/csrc``;
+2. build: compiles the port's CUDA kernels from ``vqa_tpu_torch/csrc`` and
+   its host library (the feed's threaded gathers, answer densify and
+   spatial graphs) from ``vqa_tpu_torch/csrc/host`` with g++; a host library
+   that does not build or load fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (ragged ones included), within a stated tolerance;
    gru_v2 at B=512, 1000, 4096, 8192 and 16384, at a B that reaches each
@@ -169,7 +172,26 @@ Phases, each of which raises (exit code 1) on failure:
    (phase 8's tolerances), 19 decode_att_fwd / _bwd and 1 _dvp a rank a
    step, the step's time; where the machine has 2 cards, a 1x2
    tensor-parallel step (NCCL) on one half against its one-process step,
-   else a line saying why it was not run. A failed rank fails the phase.
+   else a line saying why it was not run. A failed rank fails the phase;
+17. host feed: the port's ``pack_feature_dir`` packs a seeded npz directory
+   (36 x 2048 boxes with bbox and spatial graphs) into an int8 store, which
+   must hold what ``quantize_features`` gives; phase 4's model serves 4
+   requests of B=512 from it through the port's ``Loader`` on the host
+   library's routes (a native feature gather, graph gather and densify a
+   batch, no fallback), each batch byte-equal to the same batch assembled
+   by the numpy routes (fancy indexing, the Python densify) and its logits
+   bit-equal; gru_v2, dequant_matmul and pool_int8 launch once a request;
+   then, for information, host figures labelled with the host's CPU count
+   beside the card's name and power limit (the int8 gather at B=4096 native
+   against numpy and on 1 thread, beside the first touch of a fresh array
+   of its size and numpy's gather into a touched buffer; the densify native
+   against Python; the Loader's batches/s) and the card's copy of a B=4096
+   batch (pageable and pinned) and its forward; the port's ``cap_eval``
+   scores phase 13's ``decode.txt`` against a seeded reference file whose
+   first reference of each question holds its caption (finite scores,
+   BLEU-1, METEOR and ROUGE-L above 0); visualize's model half runs one ReGAT
+   sample on the card (its attention sums to 1, one graph alpha [1, 36,
+   36] a conv layer).
    Each phase's wall time is logged, and the total.
 
 The last three lines are the card's name and power limit as nvidia-smi
@@ -204,6 +226,15 @@ import torch
 # the flagship Up-Down dims (__graft_entry__.py entry(), bench.py)
 NTOKEN, EMBED, HIDDEN, V_DIM, OBJS, ANS, Q_LEN = 20000, 300, 1024, 2048, 36, 3129, 10
 SERVE_BATCH, SERVE_REQUESTS = 512, 4
+# phase 17: the host feed's timing store and batch (the size the JAX
+# package's feed was measured at), and the tolerance of the bf16 attention's
+# sum over 36 boxes in visualize (a softmax rounded to bf16: each of its
+# weights within 2**-9 of its value)
+FEED_STORE_ROWS, FEED_BATCH = 8192, 4096
+VIS_ATT_SUM_TOL = 1e-2
+SERVE_DIMS = dict(encoder_type="base", predictor_type="base", decoder_type="none",
+                  ntoken=NTOKEN, v_dim=V_DIM, embed_dim=EMBED, hidden_dim=HIDDEN,
+                  ans_dim=ANS, dropout=0.2, att_type="new")
 TIME_BATCH = 16384
 # the decode serving shape of scripts/bench_beam.py
 BEAM_K, C_LEN, DECODE_TIME_BATCH = 3, 20, 4096
@@ -793,6 +824,271 @@ def parallel_rank(path: str) -> int:
     return 0
 
 
+def host_feed_phase(card: str, dev, host_build_s: float, decoded) -> dict:
+    """Phase 17: the host side of the feed. The port's packer writes a
+    seeded npz directory into an int8 store (it must hold what
+    ``quantize_features`` gives); phase 4's model serves SERVE_REQUESTS
+    requests of SERVE_BATCH from it through the port's Loader on the host
+    library's routes, each batch byte-equal to the same batch assembled by
+    the numpy routes and its logits bit-equal; then the feed's host figures
+    beside the card's copy and forward, the port's cap_eval on phase 13's
+    ``decode.txt``, and visualize's model half on a ReGAT sample. Returns
+    the kernel launches of the served requests."""
+    from vqa_tpu_torch import cap_eval
+    from vqa_tpu_torch.data import native
+    from vqa_tpu_torch.data.dataset import set_dataset
+    from vqa_tpu_torch.data.loader import Loader
+    from vqa_tpu_torch.data.shards import pack_feature_dir, quantize_features
+    from vqa_tpu_torch.data.synthetic import make_synthetic_root
+    from vqa_tpu_torch.data.tokenizer import soft_answer_scores
+    from vqa_tpu_torch.models.wrapper import set_model
+    from vqa_tpu_torch.ops.kernels import _build
+    from vqa_tpu_torch.tools import visualize
+
+    bf16 = torch.bfloat16
+    host = (f"host: {os.cpu_count()} CPUs, {native.threads()} feed threads "
+            f"(VQA_NATIVE_THREADS {os.environ.get('VQA_NATIVE_THREADS', 'unset')})")
+    require(native.available(), "the host library is not available")
+    log(f"host feed: the host library built in {host_build_s:.2f} s from "
+        f"{native.SOURCE.relative_to(native.SOURCE.parents[3])}; {host}")
+
+    def on_card(b):
+        return {"q": torch.from_numpy(b["q"]).to(dev, torch.long),
+                "img_q": torch.from_numpy(b["img_q"]).to(dev),
+                "img_scale": torch.from_numpy(b["img_scale"]).to(dev, bf16),
+                "a": torch.from_numpy(b["a"]).to(dev)}
+
+    def wall_ms(fn, reps: int) -> float:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        # -- pack: the port's packer over a seeded npz directory
+        make_synthetic_root(root, split="val2014", num_images=64,
+                            num_questions=SERVE_BATCH * SERVE_REQUESTS,
+                            num_objs=OBJS, v_dim=V_DIM, vocab_size=NTOKEN,
+                            num_answers=ANS, q_len=Q_LEN, seed=17)
+        feat_dir = os.path.join(root, "features", "val2014")
+        graph_dir = os.path.join(root, "graphs", "val2014")
+        packed = os.path.join(root, "packed")
+        os.makedirs(packed)
+        t0 = time.perf_counter()
+        store = pack_feature_dir(feat_dir, os.path.join(packed, "val2014"),
+                                 feature_dtype=np.int8, graph_dir=graph_dir)
+        pack_s = time.perf_counter() - t0
+        for name, row in store.index.items():
+            with np.load(os.path.join(feat_dir, name)) as z, \
+                    np.load(os.path.join(graph_dir, name)) as g:
+                q, scale = quantize_features(z["x"])
+                require(np.array_equal(store.features[row], q)
+                        and np.array_equal(store.scales[row], scale)
+                        and np.array_equal(store.bbox[row], z["bbox"])
+                        and np.array_equal(store.graphs[row], g["graph"]),
+                        f"the packed store's row {row} is not {name} quantized")
+        log(f"host feed: pack_feature_dir packed {len(store.index)} images of "
+            f"{OBJS}x{V_DIM} into an int8 store with scales, boxes and graphs in "
+            f"{pack_s:.2f} s; every row equal to quantize_features of its npz")
+
+        # -- serve: the Loader on the native routes against the numpy routes
+        dataset = set_dataset(os.path.join(root, "annot"), packed, ANS,
+                              graph_path=os.path.join(root, "graphs"),
+                              is_val=True, dataset_type="vqa", feature_mode="int8")
+        native.reset_routes()
+        batches = list(Loader(dataset, SERVE_BATCH, drop_last=True))
+        routes = dict(native.ROUTES)
+        with mock.patch.object(native, "_load", lambda: None):
+            native.reset_routes()
+            plain = list(Loader(dataset, SERVE_BATCH, drop_last=True))
+            plain_routes = dict(native.ROUTES)
+        log(f"host feed: routes of the Loader's {len(batches)} batches {routes}; "
+            f"with the library off {plain_routes}")
+        require(len(batches) == len(plain) == SERVE_REQUESTS,
+                f"the Loader gave {len(batches)} batches")
+        require(routes["fallback"] == 0 and routes["native"] == 3 * SERVE_REQUESTS,
+                "the feed did not take the host library's routes (a feature "
+                "gather, a graph gather and a densify a batch)")
+        require(plain_routes["native"] == 0, "the plain feed reached the library")
+        for b, p in zip(batches, plain):
+            require(set(b) == set(p), f"batch keys {sorted(b)} against {sorted(p)}")
+            for key in p:
+                same = (np.asarray(b[key]).dtype == np.asarray(p[key]).dtype
+                        and np.asarray(b[key]).tobytes() == np.asarray(p[key]).tobytes())
+                require(same, f"batch key {key}: the native route's bytes differ "
+                        "from the numpy route's")
+        log(f"host feed: every batch byte-equal to the numpy routes' (keys "
+            f"{sorted(batches[0])})")
+
+        model = set_model(**SERVE_DIMS, use_pallas=True,
+                          generator=torch.Generator().manual_seed(0))
+        model = model.to(device=dev, dtype=bf16).eval()
+        requests = [on_card(b) for b in batches]
+        with torch.inference_mode():
+            _build.reset_launches()
+            served = [model.forward_vqa(r) for r in requests]
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            log(f"host feed: {SERVE_REQUESTS} requests of B={SERVE_BATCH} from the "
+                f"packed store through VQAModel.forward_vqa; kernel launches {launches}")
+            for name in VQA_KERNELS:
+                require(launches[name] == SERVE_REQUESTS,
+                        f"{name} launched {launches[name]} times, not {SERVE_REQUESTS}")
+            for score, label, _ in served:
+                require(score.shape == (SERVE_BATCH, ANS) and label.shape == (SERVE_BATCH,)
+                        and bool(torch.isfinite(score).all()), "bad forward_vqa output")
+            same = all(torch.equal(model(r)[0], model(on_card(p))[0])
+                       for r, p in zip(requests, plain))
+            log(f"host feed: logits of the native batches equal those of the numpy "
+                f"routes' batches bit for bit: {same}")
+            require(same, "the logits of the two feeds differ")
+
+        # -- timing (host figures: this machine's CPUs, not the card's)
+        rng = np.random.default_rng(17)
+        big = np.lib.format.open_memmap(os.path.join(root, "timing_features.npy"),
+                                        mode="w+", dtype=np.int8,
+                                        shape=(FEED_STORE_ROWS, OBJS, V_DIM))
+        for start in range(0, FEED_STORE_ROWS, 1024):
+            big[start:start + 1024] = np.frombuffer(
+                rng.bytes(1024 * OBJS * V_DIM), np.int8).reshape(1024, OBJS, V_DIM)
+        big.flush()
+        del big
+        big = np.load(os.path.join(root, "timing_features.npy"), mmap_mode="r")
+        rows = rng.integers(0, FEED_STORE_ROWS, FEED_BATCH)
+        gathered = native.gather_rows(big, rows, widen_f16=False)
+        require(gathered.tobytes() == np.asarray(big[rows]).tobytes(),
+                "the native gather's bytes differ from numpy's")
+        g_np0 = wall_ms(lambda: np.asarray(big[rows]), 2)
+        g_nat = wall_ms(lambda: native.gather_rows(big, rows, widen_f16=False), 4)
+        g_np1 = wall_ms(lambda: np.asarray(big[rows]), 2)
+        g_np = (g_np0 + g_np1) / 2
+        with mock.patch.dict(os.environ, {"VQA_NATIVE_THREADS": "1"}):
+            g_nat1 = wall_ms(lambda: native.gather_rows(big, rows, widen_f16=False), 2)
+        # what a gather's fresh output costs before a byte is copied (the
+        # first touch of its pages), and numpy's gather into a buffer whose
+        # pages are already there
+        touch = wall_ms(lambda: np.ones(gathered.shape, np.int8), 3)
+        reused = np.ones_like(gathered)
+        g_take = wall_ms(lambda: np.take(big, rows, axis=0, out=reused), 3)
+        del reused
+        mib = gathered.nbytes / 2 ** 20
+        log(f"time host gather B={FEED_BATCH} int8 rows of {OBJS}x{V_DIM} from a "
+            f"memory-mapped store of {FEED_STORE_ROWS} rows ({mib:.1f} MiB): native "
+            f"{g_nat:.2f} ms ({mib / g_nat * 1e3 / 1024:.2f} GiB/s), numpy "
+            f"{g_np:.2f} ms ({g_np0:.2f}, {g_np1:.2f}); x{g_np / g_nat:.2f}; native on "
+            f"1 thread {g_nat1:.2f} ms; a fresh "
+            f"{mib:.1f} MiB array's first touch {touch:.2f} ms; numpy's gather into a "
+            f"buffer already touched {g_take:.2f} ms [{host}; {card}]")
+        dicts = [dataset.answers[i % len(dataset)] for i in range(FEED_BATCH)]
+        dense = native.densify_answers_native(dicts, ANS)
+        python = np.asarray([soft_answer_scores(d, ANS) for d in dicts], np.float32)
+        require(dense.tobytes() == python.tobytes(),
+                "the native densify differs from the Python loop")
+        d_py = wall_ms(lambda: np.asarray([soft_answer_scores(d, ANS) for d in dicts],
+                                          np.float32), 1)
+        d_nat = wall_ms(lambda: native.densify_answers_native(dicts, ANS), 4)
+        log(f"time host densify of {FEED_BATCH} answer dicts into [{FEED_BATCH}, {ANS}] "
+            f"f32: native {d_nat:.2f} ms, Python {d_py:.2f} ms; x{d_py / d_nat:.1f} "
+            f"[{host}; {card}]")
+        loader = Loader(dataset, SERVE_BATCH, shuffle=True, drop_last=True)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in range(3) for _ in loader)
+        loader_s = time.perf_counter() - t0
+        log(f"time host Loader (int8 store with graphs, shuffled, B={SERVE_BATCH}): "
+            f"{n_batches} batches in {loader_s * 1e3:.1f} ms, "
+            f"{n_batches / loader_s:.1f} batches/s, {n_batches * SERVE_BATCH / loader_s:.0f} "
+            f"questions/s [{host}; {card}]")
+        host_batch = {"q": rng.integers(0, NTOKEN, (FEED_BATCH, Q_LEN)).astype(np.int32),
+                      "img_q": gathered,
+                      "img_scale": (rng.random((FEED_BATCH, OBJS), np.float32) * 2 + 2.5)
+                      / 127,
+                      "a": np.zeros((FEED_BATCH, ANS), np.float32)}
+        h2d_bytes = sum(v.nbytes for v in host_batch.values())
+
+        def copy_pageable():
+            out = on_card(host_batch)
+            torch.cuda.synchronize()
+            return out
+        pinned = {k: torch.from_numpy(v).pin_memory() for k, v in host_batch.items()}
+
+        def copy_pinned():
+            out = {k: v.to(dev, non_blocking=True) for k, v in pinned.items()}
+            torch.cuda.synchronize()
+            return out
+        copy_pageable()
+        copy_pinned()
+        h2d_page = wall_ms(copy_pageable, 3)
+        h2d_pin = wall_ms(copy_pinned, 3)
+        request = on_card(host_batch)
+        with torch.inference_mode():
+            fwd = time_ms(lambda: model.forward_vqa(request), 5)
+        log(f"time host-to-card copy of one B={FEED_BATCH} int8 batch "
+            f"({h2d_bytes / 2 ** 20:.1f} MiB): pageable {h2d_page:.2f} ms "
+            f"({h2d_bytes / h2d_page / 1e6:.2f} GB/s), pinned {h2d_pin:.2f} ms "
+            f"({h2d_bytes / h2d_pin / 1e6:.2f} GB/s); the forward on the card "
+            f"{fwd:.3f} ms; the native gather + densify {g_nat + d_nat:.2f} ms "
+            f"[{host}; {card}]")
+        del request, pinned, big
+
+        # -- scoring: the port's cap_eval on phase 13's decode.txt
+        exp = os.path.join(root, "checkpoint", "cli_decode")
+        os.makedirs(exp)
+        with open(os.path.join(exp, "decode.txt"), "w") as f:
+            f.write("\n".join(decoded) + "\n")
+        # five references a question: the decoded caption with three seeded
+        # words after it, and four seeded sentences
+        words = [f"w{i}" for i in range(NTOKEN - 4)]
+
+        def sentence(n):
+            return " ".join(rng.choice(words, n))
+        refs = [{"c_word": [cap.replace("<start> ", "") + " " + sentence(3)]
+                 + [sentence(rng.integers(6, 14)) for _ in range(4)]}
+                for cap in decoded]
+        ref_path = os.path.join(root, "val2014_captions.json")
+        with open(ref_path, "w") as f:
+            json.dump({"data": refs}, f)
+        os.chdir(root)
+        try:
+            t0 = time.perf_counter()
+            scores = cap_eval.main(["--load_ref", ref_path, "--load_path", "cli_decode"])
+            score_s = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+        require(len(scores) == 7 and all(math.isfinite(v) for v in scores.values())
+                and min(scores["Bleu_1"], scores["METEOR"], scores["ROUGE_L"]) > 0,
+                f"cap_eval scores {scores}: not finite, or no overlap with the "
+                "references that hold each caption")
+        log(f"host feed: cap_eval scored {len(decoded)} decoded captions of phase 13 "
+            f"against a seeded reference file in {score_s:.2f} s: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in scores.items()))
+
+        # -- visualize's model half on one ReGAT sample, on the card
+        regat = set_model(**REGAT_DIMS, use_pallas=True, use_int8=True,
+                          generator=torch.Generator().manual_seed(3))
+        regat = regat.to(device=dev, dtype=bf16).eval()
+        sample = visualize.sample_one_batch(dataset, 5)
+        meta = sample.pop("_meta")
+        predict, att, g_att = visualize.graph_attention(regat, sample)
+        with torch.inference_mode():
+            alphas = regat.encoder(visualize.on_model_device(sample, regat), graph_alpha=True)
+        require(predict.shape == (1, ANS) and att.shape == (1, OBJS)
+                and np.isfinite(predict).all() and np.isfinite(att).all(),
+                f"visualize: predict {predict.shape}, att {att.shape}")
+        require(abs(float(att.sum()) - 1.0) < VIS_ATT_SUM_TOL,
+                f"visualize: the attention sums to {att.sum()}")
+        require(len(alphas) == REGAT_DIMS["conv_layer"]
+                and all(tuple(a.shape) == (1, OBJS, OBJS) for a in alphas)
+                and g_att.shape == (OBJS,) and np.isfinite(g_att).all(),
+                f"visualize: graph alphas {[tuple(a.shape) for a in alphas]}, "
+                f"row {g_att.shape}")
+        log(f"host feed: visualize on {meta['feature']} (ReGAT, bf16, the card): "
+            f"attention sums to {att.sum():.6f}, top box {int(att[0].argmax())}; "
+            f"graph alphas {[tuple(a.shape) for a in alphas]}, its row "
+            f"{[round(float(x), 4) for x in g_att[:6]]}...")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -828,6 +1124,7 @@ def run(args) -> int:
     from vqa_tpu_torch.training.select import get_select_loss, make_train_select_step
     from vqa_tpu_torch.training.state import (
         TrainState, backward_step, make_train_step)
+    from vqa_tpu_torch.data import native
     from vqa_tpu_torch.data.dataset import set_dataset
     from vqa_tpu_torch.data.loader import Loader
     from vqa_tpu_torch.data.synthetic import make_synthetic_root
@@ -848,6 +1145,14 @@ def run(args) -> int:
     lib_path = _build.build()
     _build.library()
     log(f"build: {lib_path.name} in {time.monotonic() - t0:.1f} s")
+    # the host library of the feed, before any feed runs: a failed build
+    # raises here instead of leaving the feed on its numpy routes
+    t0 = time.monotonic()
+    host_lib = native.build()
+    host_build_s = time.monotonic() - t0
+    require(native.available(), f"the host library {host_lib} does not load")
+    log(f"build: {host_lib.name} (g++, {' '.join(native.CXX_FLAGS)}) in "
+        f"{host_build_s:.2f} s")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1188,9 +1493,7 @@ def run(args) -> int:
 
     # -- 4. serve a few requests through the port's main path --------------
     phase("4 serve")
-    dims = dict(encoder_type="base", predictor_type="base", decoder_type="none",
-                ntoken=NTOKEN, v_dim=V_DIM, embed_dim=EMBED, hidden_dim=HIDDEN,
-                ans_dim=ANS, dropout=0.2, att_type="new")
+    dims = SERVE_DIMS
     model = set_model(**dims, use_pallas=True,
                       generator=torch.Generator().manual_seed(0))
     model = model.to(device=dev, dtype=bf16).eval()
@@ -2113,9 +2416,10 @@ def run(args) -> int:
         for name in DECODE_KERNELS:
             require(cli_launches["decode"][name] > 0, f"--mode decode never launched {name}")
         with open(os.path.join(out, "decode.txt")) as f:
-            captions = [line for line in f.read().split("\n") if line]
-        require(len(captions) == CLI_VAL_Q, f"decode.txt holds {len(captions)} captions")
-        log(f"cli: decode.txt first captions {captions[:2]!r}")
+            cli_captions = [line for line in f.read().split("\n") if line]
+        require(len(cli_captions) == CLI_VAL_Q,
+                f"decode.txt holds {len(cli_captions)} captions")
+        log(f"cli: decode.txt first captions {cli_captions[:2]!r}")
     for start_epoch, label in ((0, "train"), (1, "resume")):
         events = cli_steps[start_epoch]
         require(len(events) == CLI_STEPS, f"--mode {label} ran {len(events)} steps")
@@ -2559,6 +2863,11 @@ def run(args) -> int:
     par_launches = parallel_phase(card, int8_feed, gen)
     torch.cuda.empty_cache()
 
+    # -- 17. the host feed: the native library, a packed store, serving -----
+    phase("17 host feed")
+    feed_launches = host_feed_phase(card, dev, host_build_s, cli_captions)
+    torch.cuda.empty_cache()
+
     phase("end")
     log(f"total wall time {time.monotonic() - t_start:.1f} s")
 
@@ -2568,6 +2877,7 @@ def run(args) -> int:
              "regat_train": regat_train_launches, "gcn_lstm_train": lstm_train_launches,
              "gcn_lstm_decode": lstm_dec_launches, "qcap_serve": qcap_launches,
              "select_train": select_launches, "parallel_rank0": par_launches,
+             "host_feed": feed_launches,
              **{f"cli_{k}": v for k, v in cli_launches.items()}, "cli": cli_total}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
                 "launches": paths[MAIN_PATH[name]][name],

@@ -16,17 +16,21 @@ import pytest
 from vqa_tpu.data.dataset import set_dataset as jax_set_dataset
 from vqa_tpu.data.loader import Loader as JaxLoader
 from vqa_tpu.data.relation import relation_graph as jax_relation_graph
+from vqa_tpu.data.relation import semantic_relation as jax_semantic_relation
 from vqa_tpu.data.relation import relation_graphs_batched as jax_graphs_batched
-from vqa_tpu.data.shards import pack_feature_dir
+from vqa_tpu.data.shards import pack_feature_dir as jax_pack_feature_dir
 from vqa_tpu.data.shards import quantize_features as jax_quantize
 from vqa_tpu.data.synthetic import make_synthetic_root as jax_make_root
 from vqa_tpu.data.tokenizer import Vocab as JaxVocab
+from vqa_tpu.data.tokenizer import get_tokens as jax_get_tokens
+from vqa_tpu.data.tokenizer import padding as jax_padding
 from vqa_tpu_torch.data.dataset import set_dataset
 from vqa_tpu_torch.data.loader import Loader
-from vqa_tpu_torch.data.relation import relation_graph, relation_graphs_batched
-from vqa_tpu_torch.data.shards import quantize_features
+from vqa_tpu_torch.data.relation import (relation_graph, relation_graphs_batched,
+                                         semantic_relation)
+from vqa_tpu_torch.data.shards import pack_feature_dir, quantize_features
 from vqa_tpu_torch.data.synthetic import make_synthetic_root
-from vqa_tpu_torch.data.tokenizer import Vocab
+from vqa_tpu_torch.data.tokenizer import Vocab, get_tokens, padding
 
 ROOT_KW = dict(split="train2014", num_images=6, num_questions=37, num_objs=5,
                v_dim=16, vocab_size=30, num_answers=9, q_len=7, c_len=12,
@@ -116,19 +120,32 @@ def test_loader_batches_match(roots, dataset_type, feature_mode, loader_kw):
         _assert_same_batches(list(port_loader), list(jax_loader))
 
 
+def _pack_both(tmp_path, feat_dir, **kw):
+    """Pack ``feat_dir`` with each package's packer into its own directory,
+    assert the files equal byte for byte, and return (port dir, jax dir)."""
+    dirs = tmp_path / "port" / "features", tmp_path / "jax" / "features"
+    for d, pack in zip(dirs, (pack_feature_dir, jax_pack_feature_dir)):
+        d.mkdir(parents=True)
+        pack(feat_dir, str(d / "train2014"), **kw)
+    names = sorted(os.listdir(dirs[0]))
+    assert names == sorted(os.listdir(dirs[1])) and len(names) >= 4
+    for name in names:
+        assert filecmp.cmp(dirs[0] / name, dirs[1] / name, shallow=False), name
+    return str(dirs[0]), str(dirs[1])
+
+
 def test_packed_store_batches_match(tmp_path, roots):
-    """A packed int8 store (written by the JAX package's packer) gives the
-    same batches through the port's numpy gathers."""
+    """A packed int8 store, written by each package's packer (the files
+    equal), gives the same batches through each package's gathers."""
     jax_root, _ = roots
     feat_dir = os.path.join(jax_root, "features", "train2014")
-    out = tmp_path / "features"
-    out.mkdir()
-    pack_feature_dir(feat_dir, str(out / "train2014"), feature_dtype=np.int8)
-    args = (os.path.join(jax_root, "annot"), str(out), ROOT_KW["num_answers"])
+    port_out, jax_out = _pack_both(tmp_path, feat_dir, feature_dtype=np.int8)
+    annot, n_ans = os.path.join(jax_root, "annot"), ROOT_KW["num_answers"]
     for mode in ("int8", "float32"):
         kw = dict(is_train=True, dataset_type="vqa-e", feature_mode=mode)
-        _assert_same_batches(list(Loader(set_dataset(*args, **kw), 16)),
-                             list(JaxLoader(jax_set_dataset(*args, **kw), 16)))
+        _assert_same_batches(
+            list(Loader(set_dataset(annot, port_out, n_ans, **kw), 16)),
+            list(JaxLoader(jax_set_dataset(annot, jax_out, n_ans, **kw), 16)))
 
 
 def test_relation_graphs_match_jax(rng):
@@ -158,23 +175,54 @@ def test_relation_graphs_match_jax(rng):
 def test_graph_batches_match(tmp_path, roots, store, feature_mode):
     """With a graph_path both packages' batches carry the same ``graph``
     [B, objs, objs] int32 labels: from the per-image npz files, or from a
-    packed store's ``_graphs.npy`` (written by the JAX package's packer)."""
+    packed store's ``_graphs.npy`` (written by each package's packer, the
+    files equal)."""
     jax_root, _ = roots
-    feat = os.path.join(jax_root, "features")
+    port_feat = jax_feat = os.path.join(jax_root, "features")
     graphs = os.path.join(jax_root, "graphs")
     if store == "packed":
-        out = tmp_path / "features"
-        out.mkdir()
-        pack_feature_dir(os.path.join(feat, "train2014"), str(out / "train2014"),
-                         feature_dtype=np.int8,
-                         graph_dir=os.path.join(graphs, "train2014"))
-        feat = str(out)
-    args = (os.path.join(jax_root, "annot"), feat, ROOT_KW["num_answers"])
+        port_feat, jax_feat = _pack_both(
+            tmp_path, os.path.join(jax_feat, "train2014"), feature_dtype=np.int8,
+            graph_dir=os.path.join(graphs, "train2014"))
+    annot, n_ans = os.path.join(jax_root, "annot"), ROOT_KW["num_answers"]
     kw = dict(graph_path=graphs, is_train=True, dataset_type="vqa",
               feature_mode=feature_mode)
-    got = list(Loader(set_dataset(*args, **kw), 8, shuffle=True, seed=2))
-    want = list(JaxLoader(jax_set_dataset(*args, **kw), 8, shuffle=True, seed=2))
+    got = list(Loader(set_dataset(annot, port_feat, n_ans, **kw), 8,
+                      shuffle=True, seed=2))
+    want = list(JaxLoader(jax_set_dataset(annot, jax_feat, n_ans, **kw), 8,
+                          shuffle=True, seed=2))
     _assert_same_batches(got, want)
     n = ROOT_KW["num_objs"]
     assert all(b["graph"].shape == (8, n, n) and b["graph"].dtype == np.int32
                for b in got)
+
+
+@pytest.mark.parametrize("is_cap", [False, True])
+def test_tokenizer_matches_jax(roots, is_cap):
+    """``get_tokens`` (case, quotes, newlines, ``.,?``, the possessive, OOV
+    words) and ``padding`` (pad and truncate) as the JAX package's."""
+    vocab = Vocab.load(os.path.join(roots[1], "vocab_list.txt"))
+    for sentence in ["W3 w1's 'w2' \"W4\"?\nw5, w6.", "", "zz W0 w0 'quoted' x",
+                     " w7 " * 30]:
+        got = get_tokens(sentence, vocab, is_cap)
+        assert got == jax_get_tokens(sentence, vocab, is_cap)
+        for max_l in (1, 5, 40):
+            assert padding(got[1], max_l, vocab.pad) == \
+                jax_padding(got[1], max_l, vocab.pad)
+
+
+def test_getitem_and_semantic_stub_match_jax(roots):
+    """``VQADataset.__getitem__`` gives ``get_batch([i])`` without its batch
+    axis, as JAX's; ``semantic_relation`` raises as JAX's stub does."""
+    jax_root, _ = roots
+    args = (os.path.join(jax_root, "annot"), os.path.join(jax_root, "features"),
+            ROOT_KW["num_answers"])
+    kw = dict(is_train=True, dataset_type="vqa-e", feature_mode="int8")
+    got, want = set_dataset(*args, **kw)[7], jax_set_dataset(*args, **kw)[7]
+    assert set(got) == set(want) and got["img_q"].shape == (5, 16)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    box = [0.0, 0.0, 1.0, 1.0]
+    for stub in (semantic_relation, jax_semantic_relation):
+        with pytest.raises(NotImplementedError):
+            stub(box, box, 1.0, 1.0)

@@ -26,6 +26,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
+from vqa_tpu_torch.data import native
 from vqa_tpu_torch.data.shards import PackedFeatures, quantize_features
 from vqa_tpu_torch.data.tokenizer import soft_answer_scores
 
@@ -106,9 +107,14 @@ class VQADataset:
         return len(self.questions)
 
     def load_answers(self, indices: Sequence[int]) -> np.ndarray:
-        """Dense soft scores min(count, 3) / 3, [batch, ans_dim] f32."""
-        return np.asarray([soft_answer_scores(self.answers[i], self.ans_dim)
-                           for i in indices], np.float32)
+        """Dense soft scores min(count, 3) / 3, [batch, ans_dim] f32, by the
+        host library's scatter (the Python loop without the library)."""
+        dicts = [self.answers[i] for i in indices]
+        out = native.densify_answers_native(dicts, self.ans_dim)
+        if out is not None:
+            return out
+        return np.asarray([soft_answer_scores(d, self.ans_dim) for d in dicts],
+                          np.float32)
 
     def _vqa_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
         files = [self.img_files[i] for i in indices]
@@ -121,6 +127,10 @@ class VQADataset:
 
     def get_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
         return self._vqa_batch(indices)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        """One sample: ``get_batch([index])`` without its batch axis."""
+        return {k: v[0] for k, v in self.get_batch([index]).items()}
 
 
 class VQAEDataset(VQADataset):

@@ -11,7 +11,9 @@ Captioning" spatial classes):
 
 ``spatial_relation`` is the scalar form; ``relation_graph`` the per-image
 builder; ``relation_graphs_batched`` the vectorized numpy builder of the
-[B, N, N] label matrices, equal to ``relation_graph`` per image.
+[B, N, N] label matrices, equal to ``relation_graph`` per image (and to the
+host library's ``native.spatial_relation_graphs_native``);
+``semantic_relation`` the reference's unimplemented stub, which raises.
 
 Reference quirks replicated exactly:
 - "area" is computed even for an empty intersection box; with both extents
@@ -59,6 +61,18 @@ def spatial_relation(a, b, w, h):
         index = lambda x: int(np.ceil((x % 360) / 45) + 3)
         return index(delta), index(delta + 180)
     return 0, 0
+
+
+def semantic_relation(a, b, w, h):
+    """Semantic relation classifier: not implemented, as in the reference
+    (its relation.py:48-62) and the JAX package. Semantic relations ("Exploring
+    Visual Relationship for Image Captioning") need a visual-relationship
+    detector trained on Visual Genome, which neither repository carries; the
+    graph plumbing (the GCN's label channels, ``relation_graph(relation=)``)
+    takes such a classifier unchanged."""
+    raise NotImplementedError(
+        "semantic relations need a pretrained relationship detector; "
+        "see docstring")
 
 
 def relation_graph(bbox: np.ndarray, w: float, h: float,

@@ -1,9 +1,16 @@
-"""Vocabulary and soft answer scores (counterpart of
-``vqa_tpu/data/tokenizer.py`` ``Vocab`` and ``soft_answer_scores``)."""
+"""Vocabulary, tokenization, padding and soft answer scores (counterpart of
+``vqa_tpu/data/tokenizer.py``).
+
+The text pipeline is the reference's (its preprocessing.py:102-130):
+lowercase, strip quote boundaries and newlines, remove ``.,?``, split the
+possessive ``'s``, split on whitespace; captions get ``<start>`` / ``<end>``
+before padding, which truncates or pads to a fixed length with ``<pad>`` and
+reports the valid length.
+"""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 
 class Vocab:
@@ -40,6 +47,35 @@ class Vocab:
 
     def __contains__(self, word: str) -> bool:
         return word in self._index
+
+
+def get_tokens(sentence: str, vocab: Vocab, is_cap: bool = False
+               ) -> Tuple[str, List[int]]:
+    """(normalized sentence, token ids) of ``sentence``; a caption
+    (``is_cap``) is wrapped in ``<start>`` ... ``<end>``."""
+    sentence = sentence.lower()
+    for c in [" '", "' ", ' "', '" ', "\n"]:
+        sentence = sentence.replace(c, " ")
+    for c in ".,?":
+        sentence = sentence.replace(c, "")
+    sentence = sentence.replace("'s", " 's")
+    words = [w for w in sentence.split() if len(w) > 0]
+    if is_cap:
+        words.insert(0, "<start>")
+        words.append("<end>")
+    tokens = [vocab.index(w) for w in words]
+    return " ".join(words), tokens
+
+
+def padding(tokens: List[int], max_l: int, pad_id: int) -> Tuple[List[int], int]:
+    """``tokens`` padded with ``pad_id`` or truncated to ``max_l``, and their
+    valid length."""
+    l = min(len(tokens), max_l)
+    if l < max_l:
+        tokens = tokens + [pad_id] * (max_l - l)
+    else:
+        tokens = tokens[:l]
+    return tokens, l
 
 
 def soft_answer_scores(ans_dict: dict, ans_dim: int) -> List[float]:

@@ -108,7 +108,7 @@ def build() -> Path:
     links the objects."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.iterdir()):
+    for src in sorted(p for p in CSRC.iterdir() if p.is_file()):
         digest.update(src.name.encode() + src.read_bytes())
     tag = digest.hexdigest()[:16]
     lib_path = BUILD_DIR / f"libvqa_kernels_{tag}.so"
