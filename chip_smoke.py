@@ -20,7 +20,8 @@ Phases, each of which raises (exit code 1) on failure:
    that does not build or load fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (ragged ones included), within a stated tolerance;
-   gru_v2 at B=512, 1000, 4096, 8192 and 16384, at a B that reaches each
+   gru_v2 at B=512, 1000, 4096, 8192, 16384 and 32768 (the bench's fast32
+   batch), at a B that reaches each
    cluster size its plan can choose (16 where the card schedules 16-block
    clusters) and at H=2048, whose state lives in device memory; the three
    decode-attention kernels at B=512, 1003 and 4096 in four input
@@ -35,8 +36,10 @@ Phases, each of which raises (exit code 1) on failure:
    ReLU) and at the ragged edges of its tiling (N=1000, K=96, and M=100
    with N=40); gcn_chain_fused at B=512, 1003 and 8192 in bf16 and f32,
    and in bf16 at D=1000 (not a whole number of its 64-column tiles);
-   dequant_matmul at the path's shape and the ragged edges of its tiling
-   (N=1000, M=100, K=64 and 80); vocab_topk_lse at R=12288 with k = 1, 3
+   dequant_matmul at the path's shape, at B=32768's M = 1,179,648 rows
+   (x_q past 2**31 bytes) and the ragged edges of its tiling (N=1000,
+   M=100, K=64 and 80); pool_int8 at B=1024, 1003 and 32768;
+   vocab_topk_lse at R=12288 with k = 1, 3
    and 8, and at R=3001, R=8 and V=1000 with an exact tie planted across
    tiles and vocabulary splits, which must go to the lower index; and at
    every one of these shapes (and phase 12's) the kernel module's
@@ -54,7 +57,9 @@ Phases, each of which raises (exit code 1) on failure:
    vocab_topk_lse, gru_v2 and dequant_matmul must rise, the beams must be
    well formed, and the best beams must agree with the same model whose
    vocab kernel, and then every kernel, is swapped for its plain version;
-6. timing (for information): gru_v2 at B=512, 4096, 8192 and 16384 with
+6. timing (for information): gru_v2, dequant_matmul and pool_int8 at the
+   bench's B=32768 with their shares of the bound; gru_v2 at B=512, 4096,
+   8192 and 16384 with
    its plan's cluster size, its share of the bound and its ratio to
    gru_last_state v1 on the same xi; each kernel and its plain version (and
    dequant_matmul and vocab_topk_lse beside cuBLAS's bf16 product of the
@@ -191,17 +196,35 @@ Phases, each of which raises (exit code 1) on failure:
    first reference of each question holds its caption (finite scores,
    BLEU-1, METEOR and ROUGE-L above 0); visualize's model half runs one ReGAT
    sample on the card (its attention sums to 1, one graph alpha [1, 36,
-   36] a conv layer).
+   36] a conv layer);
+18. measurement: ``python -m vqa_tpu_torch.bench`` at its defaults must exit
+   with 0 and print exactly one line in the root bench's schema; each rung
+   must launch each of its kernels (WARMUP + ITERS) x REPS times and no
+   other (``safe`` none, ``medium`` gru_v2, ``fast`` and ``fast32`` gru_v2,
+   dequant_matmul and pool_int8); each rung's q/s and peak memory are
+   logged beside the card's name and power limit, and ``fast``'s rate
+   must lie within 1.5x of phase 6's B=16384 forward rate either way (else
+   the two time different things); ``vqa_tpu_torch.entry.entry()``'s
+   forward on the card gives finite logits [32, 3129]; and the path
+   benchmarks each run once as a subprocess and print their rows:
+   ``scripts.bench_beam fused``, ``scripts.bench_regat``, ``scripts.bench_train
+   vqa`` and ``scripts.bench_feed`` on a 64-image corpus (B=512 and 4096,
+   2 s a cell); each row of the first three must have launched, in its own
+   run, a kernel that its name claims and no other (``fused-vocab``
+   vocab_topk_lse, ``+int8`` the int8 GEMMs), and a row that claims none
+   no kernel.
    Each phase's wall time is logged, and the total.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` (one entry per kernel, with the launch
 counts of each path, its time against its plain version and its bound,
-with the term that sets it (the paths of phases 8b and 14 included);
+with the term that sets it (the paths of phases 8b and 14 included, and
+the bench's rungs together as ``bench``);
 gru_v2's, decode_att_fwd's, decode_att_dvp's
 and gcn_chain_fused's also at B=512, as ``ms_b512`` and ``bound_ms_b512``,
-and the unfused bf16 attention module's time beside the fused attention's,
-as ``unfused_module_ms``)
+gru_v2's, dequant_matmul's and pool_int8's also at the bench's B=32768, as
+``ms_b32768`` and ``bound_ms_b32768``, and the unfused bf16 attention
+module's time beside the fused attention's, as ``unfused_module_ms``)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -384,6 +407,19 @@ MTL_DIMS = dict(encoder_type="base", predictor_type="base", decoder_type="butd",
                 decoder_hidden_dim=HIDDEN, ans_dim=ANS, c_len=C_LEN,
                 att_type="new", use_mtl=True)
 PAR_NOISE = ("attention.linear.bias",)
+
+# phase 18: the bench's fast32 batch (held in phase 3 too); how far the
+# bench's fast rate may lie from phase 6's B=16384 forward rate before the
+# two are taken to time different things; bench_feed's arguments (a
+# smaller corpus than its defaults, the same cells); a script's time limit;
+BENCH_BATCH32 = 32768
+BENCH_FORWARD_RATIO = 1.5
+FEED_ARGS = ["--images", "64", "--questions", "4096", "--batches", "512", "4096",
+             "--secs", "2"]
+SCRIPT_TIMEOUT = 300
+# the kernels that a path benchmark's row claims by a tag in its name
+ROW_CLAIMS = {"fused-vocab": ("vocab_topk_lse",),
+              "+int8": ("int8_matmul_dequant", "int8_matmul_dequant_3d")}
 
 # the card's peaks for the bound of each kernel: HBM3 bytes per ms, dense
 # bf16 and int8 tensor-core and f32 (non-tensor) operations per ms
@@ -1089,6 +1125,125 @@ def host_feed_phase(card: str, dev, host_build_s: float, decoded) -> dict:
     return launches
 
 
+def script_run(name: str, argv: list) -> subprocess.CompletedProcess:
+    """``python -m vqa_tpu_torch.<name> <argv>`` from the repository root,
+    with its wall time logged; it must exit with 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", f"vqa_tpu_torch.{name}", *argv],
+                          capture_output=True, text=True, cwd=root, timeout=SCRIPT_TIMEOUT)
+    log(f"measurement: python -m vqa_tpu_torch.{name} {' '.join(argv)}: rc "
+        f"{proc.returncode} in {time.monotonic() - t0:.1f} s")
+    require(proc.returncode == 0, f"vqa_tpu_torch.{name} {' '.join(argv)} exited with "
+            f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def script_rows(proc: subprocess.CompletedProcess, unit: str, want: int) -> list:
+    """A path benchmark's rows (the JAX script's format: name, ms, rate),
+    ``want`` of them, each with the kernels it launched in its own run (its
+    stderr ``launches`` line): at least one of those its name claims
+    (ROW_CLAIMS) and no other, or none where its name claims none."""
+    rows = [ln for ln in proc.stdout.splitlines()
+            if ln.rstrip().endswith(f" {unit})") and " ms" in ln]
+    require(len(rows) == want, f"{want} rows in {unit} expected, got:\n{proc.stdout}")
+    reports = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stderr.splitlines()
+               if ln.startswith("launches {")]
+    require(len(reports) == len(rows) and all(
+        row.startswith(r["row"] + " ") for row, r in zip(rows, reports)),
+            f"launch lines {[r['row'] for r in reports]} for rows {rows}")
+    for row, report in zip(rows, reports):
+        claimed = {k for tag, kernels in ROW_CLAIMS.items() if tag in report["row"]
+                   for k in kernels}
+        ran = {k for k, n in report["launches"].items() if n}
+        require(ran <= claimed and (bool(ran) or not claimed),
+                f"row {report['row']!r} launched {sorted(ran) or 'no kernel'}; its name "
+                f"claims {sorted(claimed) or 'none'}")
+        log(f"measurement:   {row}  [launches: "
+            f"{ {k: report['launches'][k] for k in sorted(ran)} or 'none'}]")
+    return rows
+
+
+def measurement_phase(card: str, forward_ms: float) -> dict:
+    """Phase 18: the measurement entry points on the card. ``python -m
+    vqa_tpu_torch.bench`` at its defaults prints one line in the root
+    bench's schema; each of its rungs launches its kernels (WARMUP + ITERS)
+    x REPS times and no other; its ``fast`` rate lies within
+    BENCH_FORWARD_RATIO of the phase-6 forward's (``forward_ms`` at
+    TIME_BATCH). Then ``entry()``'s forward, and each path benchmark once.
+    Returns the bench's kernel launches, all rungs together."""
+    from vqa_tpu_torch import bench
+    from vqa_tpu_torch.entry import entry
+
+    proc = script_run("bench", [])
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    require(len(lines) == 1, f"the bench printed {len(lines)} lines:\n{proc.stdout}")
+    result = json.loads(lines[0])
+    require(set(result) == {"metric", "value", "unit", "vs_baseline"}
+            and result["metric"] == "vqa_updown_batch_inference_questions_per_sec_per_chip"
+            and result["unit"] == "questions/s" and result["value"] > 0
+            and result["vs_baseline"] == round(
+                result["value"] / (bench.TARGET_MULTIPLIER * bench.REF_GPU_QPS), 3),
+            f"the bench's line is not in the root bench's schema: {lines[0]}")
+    rungs = {}
+    for line in proc.stderr.splitlines():
+        if "] rung {" in line:
+            r = json.loads(line.split("] rung ", 1)[1])
+            rungs[r["rung"]] = r
+    require(list(rungs) == list(bench.RUNGS), f"the bench's rungs {list(rungs)}")
+    each = (bench.WARMUP + bench.ITERS) * bench.REPS
+    want = {"safe": (), "medium": ("gru_v2",), "fast": VQA_KERNELS, "fast32": VQA_KERNELS}
+    total = dict.fromkeys(KERNELS, 0)
+    for name, r in rungs.items():
+        expect = {k: each if k in want[name] else 0 for k in KERNELS}
+        require(r["launches"] == expect, f"bench rung {name}: launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }, expected "
+                f"{ {k: v for k, v in expect.items() if v} }")
+        for k, v in r["launches"].items():
+            total[k] += v
+        log(f"measurement: bench rung {name} B={r['batch']} (staging "
+            f"{r['staging_s']:.2f} s): {r['qps']:.1f} q/s, {r['ms_per_forward']:.3f} ms a "
+            f"forward (host clock {r['wall_qps']:.1f} q/s), peak "
+            f"{r['peak_bytes'] / 2 ** 30:.2f} GiB, "
+            + (f"{each} launches each of {', '.join(want[name])}" if want[name]
+               else "no kernel launch") + f" [{card}]")
+    forward_qps = TIME_BATCH / forward_ms * 1e3
+    ratio = rungs["fast"]["qps"] / forward_qps
+    log(f"measurement: the bench's line {lines[0]}; fast {rungs['fast']['qps']:.1f} q/s "
+        f"against phase 6's B={TIME_BATCH} forward {forward_qps:.1f} q/s: ratio "
+        f"{ratio:.4f} (limit {BENCH_FORWARD_RATIO:g}x either way) [{card}]")
+    require(1 / BENCH_FORWARD_RATIO <= ratio <= BENCH_FORWARD_RATIO,
+            "the bench's fast rung does not time what phase 6 times")
+
+    forward, (params, batch) = entry()
+    with torch.inference_mode():
+        logits = forward(params, batch)
+    require(tuple(logits.shape) == (32, ANS) and bool(torch.isfinite(logits).all()),
+            f"entry(): logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    log(f"measurement: entry() on {logits.device}: logits {tuple(logits.shape)}, finite, "
+        f"max |logit| {logits.abs().max().item():.4f}")
+    del forward, params, batch, logits
+    torch.cuda.empty_cache()
+
+    script_rows(script_run("scripts.bench_beam", ["fused"]), "captions/s", 2)
+    script_rows(script_run("scripts.bench_regat", []), "q/s", 2)
+    script_rows(script_run("scripts.bench_train", ["vqa"]), "q/s", 2)
+    proc = script_run("scripts.bench_feed", FEED_ARGS)
+    cells = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith('{"feed"')]
+    require(len(cells) == 3 * 2 * 2 and all(
+        set(c) == {"feed", "batch", "prefetch", "batches", "questions_per_s",
+                   "questions_per_s_p90", "feed_GBps"} for c in cells),
+            f"bench_feed cells:\n{proc.stdout}")
+    best = json.JSONDecoder().raw_decode(
+        proc.stdout, proc.stdout.index('{\n  "best_per_feed"'))[0]
+    require(set(best["best_per_feed"]) == {"int8", "f16", "f32"}, "bench_feed best")
+    for feed, c in best["best_per_feed"].items():
+        log(f"measurement:   bench_feed best {feed}: B={c['batch']} prefetch "
+            f"{c['prefetch']}: {c['questions_per_s']} q/s (p90 {c['questions_per_s_p90']}), "
+            f"{c['feed_GBps']} GB/s [host: {os.cpu_count()} CPUs]")
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1410,7 +1565,7 @@ def run(args) -> int:
         for batch, hidden in sorted({(SERVE_BATCH, HIDDEN), (1000, HIDDEN),
                                      (TRAIN_TIME_BATCH, HIDDEN),
                                      (REGAT_TIME_BATCH, HIDDEN), (TIME_BATCH, HIDDEN),
-                                     (SERVE_BATCH, 2048),
+                                     (BENCH_BATCH32, HIDDEN), (SERVE_BATCH, 2048),
                                      *((b, HIDDEN) for b in reach.values() if b)}):
             xi, wh, bh = gru_inputs(batch, hidden)
             gate("gru_v2", gru_v2.supports(Q_LEN, hidden, xi.dtype), f"B={batch} H={hidden}")
@@ -1429,7 +1584,8 @@ def run(args) -> int:
         # kernel's tiling (128 x 256 tiles, 64-deep K stages): an N not a
         # multiple of 256, an M below one tile, K of one stage and of a stage
         # and a quarter
-        for rows, k, n in ((1024 * OBJS, V_DIM, HIDDEN), (1000 * OBJS + 5, V_DIM, HIDDEN),
+        for rows, k, n in ((1024 * OBJS, V_DIM, HIDDEN), (BENCH_BATCH32 * OBJS, V_DIM, HIDDEN),
+                           (1000 * OBJS + 5, V_DIM, HIDDEN),
                            (3001, V_DIM, 1000), (100, V_DIM, HIDDEN), (3001, 64, HIDDEN),
                            (3001, 80, 1000)):
             x_q, scale, w = gemm_inputs(rows, k, n)
@@ -1437,12 +1593,14 @@ def run(args) -> int:
             compare("dequant_matmul", feed_gemm.dequant_matmul(x_q, scale, w),
                     feed_gemm.dequant_matmul_reference(x_q, scale, w),
                     BF16_ATOL, BF16_RTOL, f"M={rows} K={k} N={n}")
-        for batch in (1024, 1003):
+            del x_q, scale, w
+        for batch in (1024, 1003, BENCH_BATCH32):
             w, x_q = pool_inputs(batch)
             gate("pool_int8", lazyv_pool.supports(*x_q.shape, w.dtype), f"B={batch}")
             compare("pool_int8", lazyv_pool.pool_int8(w, x_q),
                     lazyv_pool.pool_int8_reference(w, x_q),
                     BF16_ATOL, BF16_RTOL, f"B={batch} N={OBJS} D={V_DIM}")
+            del w, x_q
         # the beam step's rows R = B x k at B=4096 (at k = 1, 3 and 8, the
         # ends of the kernel's k), a ragged R, then the ragged edges of its
         # tiling (128-row bands, 128-column tiles, vocabulary splits): an R
@@ -1648,6 +1806,26 @@ def run(args) -> int:
         bounds["pool_int8"] = bound(nbytes(w, x_q, lazyv_pool.pool_int8(w, x_q)),
                                     2.0 * TIME_BATCH * OBJS * V_DIM, "f32")
         del w, x_q
+        # the bench's fast32 batch: the three kernels of its forward, alone
+        xi, wh, bh = gru_inputs(BENCH_BATCH32)
+        at32 = {"gru_v2": (time_ms(lambda: gru_v2.gru_last_state_v2(xi, wh, bh), 5), bound(
+            nbytes(xi, wh, bh, gru_v2.gru_last_state_v2(xi, wh, bh)),
+            gru_ops(BENCH_BATCH32, Q_LEN, HIDDEN), "bf16"))}
+        del xi, wh, bh
+        x_q, scale, w = gemm_inputs(BENCH_BATCH32 * OBJS)
+        at32["dequant_matmul"] = (time_ms(lambda: feed_gemm.dequant_matmul(x_q, scale, w), 5),
+                                  bound(nbytes(x_q, scale, w, feed_gemm.dequant_matmul(x_q, scale, w)),
+                                        2.0 * BENCH_BATCH32 * OBJS * V_DIM * HIDDEN, "bf16"))
+        del x_q, scale, w
+        w, x_q = pool_inputs(BENCH_BATCH32)
+        at32["pool_int8"] = (time_ms(lambda: lazyv_pool.pool_int8(w, x_q), 10),
+                             bound(nbytes(w, x_q, lazyv_pool.pool_int8(w, x_q)),
+                                   2.0 * BENCH_BATCH32 * OBJS * V_DIM, "f32"))
+        del w, x_q
+        for name, (k_ms, b) in at32.items():
+            extra.setdefault(name, {}).update(ms_b32768=k_ms, bound_ms_b32768=b[0])
+            log(f"time {name} B={BENCH_BATCH32}: kernel {k_ms:.4f} ms, bound {b[0]:.4f} ms "
+                f"({b[1]}), share of the bound {b[0] / k_ms:.1%} [{card}]")
         for name, (k_ms, p_ms) in times.items():
             log(f"time {name} B={TIME_BATCH}: kernel {k_ms:.4f} ms, plain "
                 f"{p_ms:.4f} ms [{card}]")
@@ -1693,6 +1871,7 @@ def run(args) -> int:
                  "img_q": x_q.view(TIME_BATCH, OBJS, V_DIM),
                  "img_scale": scale.view(TIME_BATCH, OBJS)}
         fwd_k, fwd_p = time_pair(lambda: model(batch), lambda: plain_model(batch), 3)
+        forward_ms = fwd_k   # phase 18 holds the bench's fast rung against it
         log(f"time forward B={TIME_BATCH} int8 feed bf16: kernels {fwd_k:.3f} ms "
             f"({TIME_BATCH / fwd_k * 1e3:.1f} q/s), plain {fwd_p:.3f} ms "
             f"({TIME_BATCH / fwd_p * 1e3:.1f} q/s); recorded before dequant_matmul's "
@@ -2868,6 +3047,11 @@ def run(args) -> int:
     feed_launches = host_feed_phase(card, dev, host_build_s, cli_captions)
     torch.cuda.empty_cache()
 
+    # -- 18. the measurement entry points: the bench, entry(), the scripts --
+    phase("18 measurement")
+    bench_launches = measurement_phase(card, forward_ms)
+    torch.cuda.empty_cache()
+
     phase("end")
     log(f"total wall time {time.monotonic() - t_start:.1f} s")
 
@@ -2877,7 +3061,7 @@ def run(args) -> int:
              "regat_train": regat_train_launches, "gcn_lstm_train": lstm_train_launches,
              "gcn_lstm_decode": lstm_dec_launches, "qcap_serve": qcap_launches,
              "select_train": select_launches, "parallel_rank0": par_launches,
-             "host_feed": feed_launches,
+             "host_feed": feed_launches, "bench": bench_launches,
              **{f"cli_{k}": v for k, v in cli_launches.items()}, "cli": cli_total}
     entries = [{"name": name, "route": "cuda", **KERNELS[name],
                 "launches": paths[MAIN_PATH[name]][name],

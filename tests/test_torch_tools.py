@@ -266,9 +266,10 @@ def test_visualize_graph_alphas_match_jax(vis_root, layer):
 
 
 def test_no_module_of_the_port_imports_jax_or_vqa_tpu():
-    """Every module of vqa_tpu_torch (the host library's bindings and the
-    tools included) and chip_smoke.py import no jax, flax or optax and
-    nothing of vqa_tpu."""
+    """Every module of vqa_tpu_torch (the host library's bindings, the
+    tools, the bench, the entry point and the path benchmarks included)
+    and chip_smoke.py import no jax, flax or optax and nothing of
+    vqa_tpu."""
     code = ("import importlib, pkgutil, sys\n"
             "import vqa_tpu_torch, chip_smoke\n"
             "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -279,7 +280,11 @@ def test_no_module_of_the_port_imports_jax_or_vqa_tpu():
             "             ('jax', 'jaxlib', 'flax', 'optax', 'vqa_tpu'))\n"
             "assert not bad, bad\n"
             "assert {'vqa_tpu_torch.data.native', 'vqa_tpu_torch.tools.visualize',\n"
-            "        'vqa_tpu_torch.preprocessing', 'vqa_tpu_torch.cap_eval'} <= set(names)\n")
+            "        'vqa_tpu_torch.preprocessing', 'vqa_tpu_torch.cap_eval',\n"
+            "        'vqa_tpu_torch.bench', 'vqa_tpu_torch.entry',\n"
+            "        'vqa_tpu_torch.scripts._bench_util', 'vqa_tpu_torch.scripts.bench_beam',\n"
+            "        'vqa_tpu_torch.scripts.bench_regat', 'vqa_tpu_torch.scripts.bench_train',\n"
+            "        'vqa_tpu_torch.scripts.bench_feed'} <= set(names)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

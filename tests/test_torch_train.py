@@ -90,6 +90,27 @@ SOFTMAX_BIASES = ("encoder.attention.linear.bias",
                   "generator.attention.linear.bias")
 
 
+def test_vqa_head_alone_on_the_int8_feed_matches_jax(rng):
+    """A VQA head without a decoder on the int8 feed (bench_train's
+    vqa-int8 rows): the encoder forms no dense ``v``, only the pooled
+    ``v_sum``."""
+    jm, params, port = twins(rng, decoder_type="none")
+    batch = {k: v for k, v in make_batch(rng, "int8").items() if k not in ("c", "cap_len")}
+    (want, w_writes), w_grads = jax.value_and_grad(
+        lambda p: jm.apply({"params": p}, to_jax(batch), method="get_loss",
+                           deterministic=True), has_aux=True)(params)
+    port.train()
+    got, writes = port.get_loss(to_torch(batch))
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    assert set(writes) == set(w_writes) == {"train/loss", "train/score"}
+    want_g = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, w_grads))
+    for name, g in grads_of(port).items():
+        atol = 1e-6 if name in SOFTMAX_BIASES else TOL["atol"]
+        np.testing.assert_allclose(g.numpy(), want_g[name].numpy(),
+                                   rtol=TOL["rtol"], atol=atol, err_msg=name)
+
+
 @pytest.mark.parametrize("feed", ["dense", "int8"])
 def test_get_loss_and_grads_match_jax(rng, feed):
     """get_loss (MTL weighting, both heads, the fused caption scan through

@@ -123,7 +123,9 @@ class VQAModel(nn.Module):
                                              caption["mask"], token_count)
         predict = self.predictor(embed) if self.predictor is not None else None
         log_vars = self.log_vars if self.mtl_active else None
-        loss = torch.zeros((), dtype=torch.float32, device=embed["v"].device)
+        # (a VQA head alone on the int8 feed forms no dense "v")
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(embed.values())).device)
         writes: Dict[str, torch.Tensor] = {}
         if predict is not None:
             target = _at_least_f32(batch["a"])
