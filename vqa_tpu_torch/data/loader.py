@@ -121,14 +121,18 @@ class Loader:
         return [int(np.sum(which == b)) for b in range(len(self.bucket_bounds))]
 
     def _finish(self, idx: np.ndarray, nvalid: int, bound: Optional[int]):
-        batch = getattr(self.dataset, self.batch_method)(list(idx))
-        batch["nvalid"] = np.int32(nvalid)
-        # keep one padded position beyond the bound, as the JAX package
-        # does (its caption-reading predictors need it)
-        if bound is not None and "c" in batch \
-                and bound + 1 < batch["c"].shape[1]:
-            batch["c"] = batch["c"][:, :bound + 1]
-        return self.transform(batch) if self.transform is not None else batch
+        from vqa_tpu_torch import tracing
+
+        with tracing.span("vqa.feed.batch"):
+            batch = getattr(self.dataset, self.batch_method)(list(idx))
+            batch["nvalid"] = np.int32(nvalid)
+            # keep one padded position beyond the bound, as the JAX package
+            # does (its caption-reading predictors need it)
+            if bound is not None and "c" in batch \
+                    and bound + 1 < batch["c"].shape[1]:
+                batch["c"] = batch["c"][:, :bound + 1]
+            return (self.transform(batch) if self.transform is not None
+                    else batch)
 
     def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
         # an epoch-stable permutation: every shard derives the same order
@@ -227,6 +231,8 @@ def prefetch_to_device(iterator, device, size: int = 2,
 
     import torch
 
+    from vqa_tpu_torch import tracing
+
     device = torch.device(device)
     cuda = device.type == "cuda"
     side = torch.cuda.Stream(device) if cuda else None
@@ -266,7 +272,8 @@ def prefetch_to_device(iterator, device, size: int = 2,
 
     queue_ = collections.deque()
     for batch in iterator:
-        queue_.append(put(batch))
+        with tracing.span("vqa.feed.stage"):
+            queue_.append(put(batch))
         if len(queue_) >= size:
             yield hand_out(queue_.popleft())
     while queue_:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.ops.attention import MultiplyAttention, set_att
 from vqa_tpu_torch.ops.embedding import WordEmbedding
 from vqa_tpu_torch.ops.gcn import GCN
@@ -136,11 +137,19 @@ class BaseEncoder(nn.Module):
 
     def _visual(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        q = self.q_rnn(self.embedding(batch["q"]))          # [B, hidden]
+        # three spans (``vqa_tpu_torch/tracing.py``): the question, the
+        # attention (the v projection, the logits and softmax, the box
+        # weights) and the pooling (the pooled or attended features)
+        with tracing.span("vqa.encoder.question", device=True):
+            q = self.q_rnn(self.embedding(batch["q"]))      # [B, hidden]
+            q_out = self.q_net(q)
         if "img_q" not in batch:
             v = batch["img"]
-            v_att = self.attention(v, q)
-            return {"v": v_att * v, "q": self.q_net(q), "v_att": v_att}
+            with tracing.span("vqa.encoder.attention", device=True):
+                v_att = self.attention(v, q)
+            with tracing.span("vqa.encoder.pool", device=True):
+                v = v_att * v
+            return {"v": v, "q": q_out, "v_att": v_att}
 
         img_q, img_scale = batch["img_q"], batch["img_scale"]
         # the kernels take bf16 operands: an f32 model runs the plain path,
@@ -149,31 +158,34 @@ class BaseEncoder(nn.Module):
                       and img_scale.dtype == torch.bfloat16)
         int8_gemm = self.use_int8 and not self.training
         concat = not isinstance(self.attention, MultiplyAttention)
-        # the dequantized features, only where a reader needs them dense
-        v = (img_q.to(img_scale.dtype) * img_scale[..., None]
-             if self.with_v or (concat and not int8_gemm) else None)
-        if int8_gemm:
-            vp = self.attention.project_v_int8(img_q, img_scale,
-                                               use_kernel=self.use_pallas,
-                                               use_int8=True)
-            v_att = self.attention(v, q, v_cache=vp)
-        elif concat or (v is not None and not use_kernel):
-            # the same product as project_v_int8's plain path, from the
-            # features already formed (the JAX package's training path)
-            v_att = self.attention(v, q)
-        else:
-            vp = self.attention.project_v_int8(img_q, img_scale,
-                                               use_kernel=use_kernel)
-            v_att = self.attention(None, q, v_cache=vp)
-        w = v_att[..., 0] * img_scale.to(v_att.dtype)
-        out = {"q": self.q_net(q), "v_att": v_att, "v_q8": img_q, "v_w": w}
-        if self.with_v_sum:
-            pool = (lazyv_pool.pool_int8
-                    if use_kernel and lazyv_pool.supports(*img_q.shape, w.dtype)
-                    else lazyv_pool.pool_int8_reference)
-            out["v_sum"] = pool(w, img_q)
-        if self.with_v:
-            out["v"] = v_att * v
+        with tracing.span("vqa.encoder.attention", device=True):
+            # the dequantized features, only where a reader needs them dense
+            v = (img_q.to(img_scale.dtype) * img_scale[..., None]
+                 if self.with_v or (concat and not int8_gemm) else None)
+            if int8_gemm:
+                vp = self.attention.project_v_int8(img_q, img_scale,
+                                                   use_kernel=self.use_pallas,
+                                                   use_int8=True)
+                v_att = self.attention(v, q, v_cache=vp)
+            elif concat or (v is not None and not use_kernel):
+                # the same product as project_v_int8's plain path, from the
+                # features already formed (the JAX package's training path)
+                v_att = self.attention(v, q)
+            else:
+                vp = self.attention.project_v_int8(img_q, img_scale,
+                                                   use_kernel=use_kernel)
+                v_att = self.attention(None, q, v_cache=vp)
+            w = v_att[..., 0] * img_scale.to(v_att.dtype)
+        out = {"q": q_out, "v_att": v_att, "v_q8": img_q, "v_w": w}
+        with tracing.span("vqa.encoder.pool", device=True):
+            if self.with_v_sum:
+                pool = (lazyv_pool.pool_int8
+                        if use_kernel
+                        and lazyv_pool.supports(*img_q.shape, w.dtype)
+                        else lazyv_pool.pool_int8_reference)
+                out["v_sum"] = pool(w, img_q)
+            if self.with_v:
+                out["v"] = v_att * v
         return out
 
 

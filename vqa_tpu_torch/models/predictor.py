@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.ops.caption import CaptionEmbedding
 from vqa_tpu_torch.ops.linear import FCNet, LReLUNet
 from vqa_tpu_torch.ops.rnn import SentenceEmbedding
@@ -35,8 +36,9 @@ class BasePredictor(nn.Module):
     def forward(self, embed: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Encoder output -> [B, ans_dim]. Reads the pooled ``v_sum`` of the
         int8 feed when present, else sums ``v`` over the boxes."""
-        joint = embed["q"] * self.v_net(_pooled(embed))
-        return self.classifier(joint)
+        with tracing.span("vqa.predictor", device=True):
+            joint = embed["q"] * self.v_net(_pooled(embed))
+            return self.classifier(joint)
 
 
 class BaseCaptionPredictor(BasePredictor):
@@ -58,9 +60,10 @@ class BaseCaptionPredictor(BasePredictor):
     def forward(self, embed: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Encoder output, the embedded caption ``c`` included ->
         [B, ans_dim]."""
-        c = self.c_net(self.c_rnn(embed["c"]))
-        joint = embed["q"] * (c + self.v_net(_pooled(embed)))
-        return self.classifier(joint)
+        with tracing.span("vqa.predictor", device=True):
+            c = self.c_net(self.c_rnn(embed["c"]))
+            joint = embed["q"] * (c + self.v_net(_pooled(embed)))
+            return self.classifier(joint)
 
 
 class PredictorwithCaption(nn.Module):
@@ -93,14 +96,15 @@ class PredictorwithCaption(nn.Module):
     def forward(self, embed: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Encoder output with the attended ``v``, ``q``, the embedded
         caption ``c`` and optionally ``cap_len`` -> [B, ans_dim] in (0, 1)."""
-        v_proj = self.v_net(embed["v"])                     # [B, objs, H]
-        v = v_proj.sum(dim=1)
-        c = self.caption_embedding(v, embed["q"], embed["c"],
-                                   embed.get("cap_len"))
-        c = self.c_net(c)
-        joint = torch.softmax(self.joint_net(c * self.vq_net(v)), dim=1)
-        v = self.vqc_net(torch.sum(joint[:, None, :] * v_proj, dim=1))
-        return torch.sigmoid(self.cls_net(embed["q"] * (v + c)))
+        with tracing.span("vqa.predictor", device=True):
+            v_proj = self.v_net(embed["v"])                 # [B, objs, H]
+            v = v_proj.sum(dim=1)
+            c = self.caption_embedding(v, embed["q"], embed["c"],
+                                       embed.get("cap_len"))
+            c = self.c_net(c)
+            joint = torch.softmax(self.joint_net(c * self.vq_net(v)), dim=1)
+            v = self.vqc_net(torch.sum(joint[:, None, :] * v_proj, dim=1))
+            return torch.sigmoid(self.cls_net(embed["q"] * (v + c)))
 
 
 def _pooled(embed: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.models.encoder import (
     BaseEncoder, CaptionEncoder, RelationEncoder)
 from vqa_tpu_torch.models.generator import set_decoder, token_mean
@@ -97,9 +98,12 @@ class VQAModel(nn.Module):
         """(predict [B, ans_dim], caption): each None without its head; the
         caption is the generator's teacher-forced output, which needs the
         caption ``c`` and ``cap_len`` in the batch."""
-        embed = self.encoder(batch)
-        caption = self.generator(embed) if self.generator is not None else None
-        predict = self.predictor(embed) if self.predictor is not None else None
+        with tracing.span("vqa.forward", device=True):
+            embed = self.encoder(batch)
+            caption = (self.generator(embed) if self.generator is not None
+                       else None)
+            predict = (self.predictor(embed) if self.predictor is not None
+                       else None)
         return predict, caption
 
     def get_loss(self, batch: Dict[str, torch.Tensor], *,

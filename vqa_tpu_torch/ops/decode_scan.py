@@ -42,6 +42,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.ops.kernels import decode_att as da
 from vqa_tpu_torch.ops.rnn import gru_step
 
@@ -161,11 +162,22 @@ def _flat_inputs(pool, w, vp):
 class _Scan(torch.autograd.Function):
     """Forward: the scan without autograd, keeping the per-step residuals.
     Backward: the reverse loop of ``vqa_tpu/ops/decode_scan.py``
-    ``_bwd_common``."""
+    ``_bwd_common``. Each runs in a span of its own
+    (``vqa_tpu_torch/tracing.py``)."""
 
     @staticmethod
-    def forward(ctx, cfg: _Config, seed: int, pool, w, vp, v_gates,
-                prev_seq, h1_0, h2_0, *params):
+    def forward(ctx, *args):
+        with tracing.span("vqa.decode_scan.forward"):
+            return _Scan._forward(ctx, *args)
+
+    @staticmethod
+    def backward(ctx, d_feats):
+        with tracing.span("vqa.decode_scan.backward"):
+            return _Scan._backward(ctx, d_feats)
+
+    @staticmethod
+    def _forward(ctx, cfg: _Config, seed: int, pool, w, vp, v_gates,
+                 prev_seq, h1_0, h2_0, *params):
         P = dict(zip(SCAN_PARAMS, params))
         B, objs, H = vp.shape
         vp2, pool2, w_ = _flat_inputs(pool, w, vp)
@@ -200,7 +212,7 @@ class _Scan(torch.autograd.Function):
         return feats
 
     @staticmethod
-    def backward(ctx, d_feats):
+    def _backward(ctx, d_feats):
         cfg, seed = ctx.cfg, ctx.seed
         (pool, w, vp, v_gates, prev_seq, h1s, h2s, atts, att_vs,
          *params) = ctx.saved_tensors

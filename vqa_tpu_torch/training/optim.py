@@ -26,6 +26,8 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from vqa_tpu_torch import tracing
+
 
 def steplr_factor(epoch: int, warm_up: int, step_size: int,
                   gamma: float) -> float:
@@ -67,11 +69,12 @@ class Optimizer:
     def step(self, update: int) -> torch.Tensor:
         """Clip the gradients and apply update number ``update`` (0-based);
         returns the gradient norm before clipping, as a device tensor."""
-        factor = self.lr_factor(update)
-        for g in self.adamax.param_groups:
-            g["lr"] = g["base_lr"] * factor
-        norm = self.clip()
-        self.adamax.step()
+        with tracing.span("vqa.step.optimizer"):
+            factor = self.lr_factor(update)
+            for g in self.adamax.param_groups:
+                g["lr"] = g["base_lr"] * factor
+            norm = self.clip()
+            self.adamax.step()
         return norm
 
     def clip(self) -> torch.Tensor:

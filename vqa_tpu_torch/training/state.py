@@ -48,6 +48,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.models.wrapper import VQAModel
 from vqa_tpu_torch.parallel import mesh as mesh_lib
 from vqa_tpu_torch.training.optim import Optimizer
@@ -126,19 +127,22 @@ def backward_step(model: VQAModel, batch: Dict, run_seed: int, step: int,
     ``train/*`` writes, detached."""
     model.train()
     torch_seed, scan_seed = step_seeds(run_seed, step, data_rank)
-    params = {"model." + n: p for n, p in model.named_parameters()}
-    buffers = {"model." + n: b for n, b in model.named_buffers()}
-    dev = next(iter(params.values())).device
+    with tracing.span("vqa.step.cast"):
+        params = {"model." + n: p for n, p in model.named_parameters()}
+        buffers = {"model." + n: b for n, b in model.named_buffers()}
+        dev = next(iter(params.values())).device
+        weights = _cast_floats({**params, **buffers}, compute_dtype)
+        batch = _cast_floats(batch, compute_dtype)
     with torch.random.fork_rng(
             devices=[dev.index or 0] if dev.type == "cuda" else []):
-        torch.manual_seed(torch_seed)
-        loss, writes = functional_call(
-            _Loss(model, loss_fn),
-            _cast_floats({**params, **buffers}, compute_dtype),
-            (_cast_floats(batch, compute_dtype), scan_seed, token_count))
-        for p in model.parameters():
-            p.grad = None
-        loss.backward()
+        with tracing.span("vqa.step.forward"):
+            torch.manual_seed(torch_seed)
+            loss, writes = functional_call(_Loss(model, loss_fn), weights,
+                                           (batch, scan_seed, token_count))
+        with tracing.span("vqa.step.backward"):
+            for p in model.parameters():
+                p.grad = None
+            loss.backward()
     metrics = {k: v.detach() for k, v in writes.items()}
     metrics["loss"] = loss.detach()
     return metrics
@@ -178,11 +182,12 @@ def make_train_step(model: VQAModel, optimizer: Optimizer,
     token_count = mesh_lib.data_token_count(mesh)
 
     def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
-        metrics = backward_step(model, batch, state.seed, state.step,
-                                compute_dtype, loss_fn, data_rank,
-                                token_count)
-        reduce_over_data(model, metrics, mesh)
-        metrics["grad_norm"] = optimizer.step(state.step)
+        with tracing.span("vqa.step", args=state.step):
+            metrics = backward_step(model, batch, state.seed, state.step,
+                                    compute_dtype, loss_fn, data_rank,
+                                    token_count)
+            reduce_over_data(model, metrics, mesh)
+            metrics["grad_norm"] = optimizer.step(state.step)
         state.step += 1
         return metrics
 

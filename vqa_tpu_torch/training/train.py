@@ -36,6 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.data.loader import prefetch_to_device
 from vqa_tpu_torch.models.wrapper import VQAModel
 from vqa_tpu_torch.parallel import mesh as mesh_lib
@@ -280,7 +281,7 @@ def train(model: VQAModel,
                 if profile_dir and gstep == profile_steps[0]:
                     profiler = _start_profiler(device)
                 metrics = train_step(state, mb)
-                if profiler is not None and gstep == profile_steps[1]:
+                if profiler is not None and gstep + 1 == profile_steps[1]:
                     _stop_profiler(profiler, device, profile_dir)
                     profiler, profile_dir = None, None   # capture once
                 drain()                  # step i-1's scalars, overlapped
@@ -326,11 +327,16 @@ def train(model: VQAModel,
 
 
 def _start_profiler(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
+    """A profiler over the next steps, of every thread: the Loader's
+    producer (``vqa.feed.batch``) and autograd's device thread too. The
+    spans' totals (``vqa_tpu_torch/tracing.py``) start again with it."""
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities, experimental_config=
+                   _ExperimentalConfig(profile_all_threads=True))
+    tracing.reset()
     prof.start()
     return prof
 
