@@ -1,8 +1,8 @@
 """The port's spans (``vqa_tpu_torch/tracing.py``): nothing while no
 profiler runs; under ``torch.profiler`` each phase of a training step, the
-caption scan and each module of the forward in the trace and in the
-totals; the CLI's ``--profile_dir`` trace with the step's and the feed's
-spans."""
+caption scan, each module of the forward and ReGAT's graph stage in the
+trace and in the totals; the CLI's ``--profile_dir`` trace with the step's
+and the feed's spans."""
 
 import json
 import sys
@@ -145,6 +145,41 @@ def test_module_spans_count_one_a_forward(kind, feed):
         assert totals[name]["stream_ms"] is None
     inner = sum(totals[n]["host_ms"] for n in MODULES)
     assert inner <= totals["vqa.forward"]["host_ms"]
+
+
+GRAPH = ("vqa.encoder.graph", "vqa.gcn.project", "vqa.gcn.chain")
+
+
+@pytest.mark.parametrize("kind", ["regat", "updown"])
+def test_graph_spans_only_in_the_relation_model(kind):
+    """A ReGAT forward (config 5: one correlated convolution) holds each
+    graph span once, inside the encoder's; an Up-Down forward none."""
+    if kind == "regat":
+        model = set_model(encoder_type="relation", predictor_type="base",
+                          decoder_type="none", ntoken=NTOKEN, v_dim=V_DIM,
+                          embed_dim=8, hidden_dim=16, ans_dim=ANS,
+                          att_type="new", conv_layer=1, conv_type="corr",
+                          use_pallas=True,
+                          generator=torch.Generator().manual_seed(3),
+                          device="cpu")
+    else:
+        model = model_of("updown")
+    batch = batch_of("int8")
+    batch["graph"] = torch.randint(0, 12, (B, OBJS, OBJS),
+                                   generator=torch.Generator().manual_seed(1))
+    _, names = profiled(lambda: make_infer_step(model)(batch))
+    totals = tracing.totals()
+    assert totals["vqa.forward"]["count"] == 1
+    if kind == "updown":
+        assert not set(GRAPH) & set(totals) and not set(GRAPH) & names
+        return
+    for name in GRAPH:
+        assert totals[name]["count"] == 1, name
+        assert name in names, name
+    graph = totals["vqa.encoder.graph"]["host_ms"]
+    assert totals["vqa.gcn.project"]["host_ms"] \
+        + totals["vqa.gcn.chain"]["host_ms"] <= graph
+    assert graph <= totals["vqa.forward"]["host_ms"]
 
 
 def test_totals_after_the_profiler_and_reset():

@@ -200,7 +200,8 @@ class RelationEncoder(BaseEncoder):
     On the int8 feed it reads the dense attended features ``v_att * (img_q
     * img_scale)``, rounded as JAX rounds them, and forms no pooled
     ``v_sum``; its output drops ``v_q8`` and ``v_w``, which no longer
-    describe ``v``.
+    describe ``v``. The branches and their sum run in the span
+    ``vqa.encoder.graph``.
     """
 
     def __init__(self, ntoken: int, v_dim: int, embed_dim: int,
@@ -247,12 +248,13 @@ class RelationEncoder(BaseEncoder):
         out = super().forward(batch)
         v = out["v"]
         output_v, g_att = None, []
-        for name in self.branches:
-            new_v = getattr(self, f"{name}_encoder")(
-                v, self._graph(name, batch, v), graph_alpha)
-            if graph_alpha:
-                new_v, g_att = new_v
-            output_v = new_v if output_v is None else output_v + new_v
+        with tracing.span("vqa.encoder.graph", device=True):
+            for name in self.branches:
+                new_v = getattr(self, f"{name}_encoder")(
+                    v, self._graph(name, batch, v), graph_alpha)
+                if graph_alpha:
+                    new_v, g_att = new_v
+                output_v = new_v if output_v is None else output_v + new_v
         if graph_alpha:
             return g_att
         out["v"] = output_v

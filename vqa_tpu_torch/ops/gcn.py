@@ -13,6 +13,12 @@
 - ``GCN``: conv -> dropout -> ReLU stack, its convs registered as
   ``conv{i}`` (the intended model: the reference's plain list hides them).
 
+Spans (``vqa_tpu_torch/tracing.py``): ``vqa.gcn.project`` around a layer's
+GEMMs over the boxes' features (w_self, the folded direction weight and,
+for the correlated conv, ``similarity_parts``), ``vqa.gcn.chain`` around
+the correlated conv's graph-local rest (the correlation product, its ReLU
+and the fused chain or its plain form).
+
 With ``use_int8``, inference quantizes the layer input by rows once and runs
 the w_self, folded-direction and ``a C`` projections as int8 GEMMs
 (``ops/quant.py``). The JAX package calls them without ``use_pallas`` (its
@@ -35,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.ops.kernels import gcn_chain
 from vqa_tpu_torch.ops.linear import Dense, DotProduct, uniform_
 from vqa_tpu_torch.ops.quant import int8_dot, quantize_rows
@@ -97,32 +104,35 @@ class DirectedGraphConv(nn.Module):
         return quantize_rows(feature) if self.use_int8 and not self.training \
             else None
 
-    def conv(self, feature: torch.Tensor, graph: torch.Tensor,
-             return_parts: bool = False, fq=None):
-        """The conv; ``return_parts``: (out_self, the folded projection,
-        label_bias) for the fused chain instead. ``fq``: the quantized
-        input, for the int8 GEMMs."""
-        def project(w: torch.Tensor) -> torch.Tensor:
+    def project(self, feature: torch.Tensor, fq=None):
+        """The layer's GEMMs: (out_self, the folded direction projection or
+        None). ``fq``: the quantized input, for the int8 GEMMs."""
+        def dense(w: torch.Tensor) -> torch.Tensor:
             if fq is not None:
                 return int8_dot(fq[0], fq[1], w.t(), out_dtype=feature.dtype)
             return torch.matmul(feature, w.to(feature.dtype).t())
 
-        out = project(getattr(self, f"w{self.dir_num - 1}").weight)
+        out = dense(getattr(self, f"w{self.dir_num - 1}").weight)
         ws = [getattr(self, f"w{i}").weight for i in range(self.dir_num - 1)]
         # sum_i adj @ (f W_i) == adj @ (f sum_i W_i): one GEMM, in the
         # parameter dtype as in JAX
-        proj = project(sum(ws[1:], start=ws[0])) if ws else None
-        if return_parts:
-            return out, proj, self.label_bias
+        proj = dense(sum(ws[1:], start=ws[0])) if ws else None
+        return out, proj
+
+    def combine(self, out: torch.Tensor, proj: Optional[torch.Tensor],
+                graph: torch.Tensor) -> torch.Tensor:
+        """``out + adj @ proj + sum_j label_bias[graph[:, :, j]]``."""
         if proj is not None:
-            adj = (graph != 0).to(feature.dtype)
+            adj = (graph != 0).to(out.dtype)
             out = out + torch.matmul(adj, proj)
         return out + label_bias_sum(graph, self.label_bias.to(out.dtype),
                                     self.num_labels)
 
     def forward(self, feature: torch.Tensor, graph: torch.Tensor
                 ) -> torch.Tensor:
-        return self.conv(feature, graph, fq=self._quantized_input(feature))
+        with tracing.span("vqa.gcn.project", device=True):
+            parts = self.project(feature, self._quantized_input(feature))
+        return self.combine(*parts, graph)
 
 
 class CorrelatedGraphConv(DirectedGraphConv):
@@ -146,33 +156,37 @@ class CorrelatedGraphConv(DirectedGraphConv):
         projections runs as the ``gcn_chain_fused`` kernel where it takes
         the shapes (``gcn_chain.supports``), which forms no alpha: None is
         returned for it."""
-        fq = self._quantized_input(feature)
-        if self.use_pallas and not self.training and self.dir_num >= 2 \
-                and not need_alpha and gcn_chain.supports(
-                    *feature.shape[:2], self.label_bias.shape[1],
-                    self.num_labels, feature.dtype):
-            out_self, proj, bias = self.conv(feature, graph, return_parts=True,
-                                             fq=fq)
-            fc, u, w = self.dot_product.similarity_parts(feature, aq=fq)
-            # alpha = relu((f C) f^T + u_i + w_j); the [36, 36] contraction
-            # stays a batched product, as it stays in XLA
-            alpha_raw = torch.relu(torch.einsum("bik,bjk->bij", fc, feature)
-                                   + u[:, :, None] + w[:, None, :])
-            out = gcn_chain.gcn_chain_fused(
-                out_self, proj, alpha_raw, graph.to(torch.int32).contiguous(),
-                bias.to(out_self.dtype), num_labels=self.num_labels)
-            return out, None
-        adj = (graph != 0).to(feature.dtype)
-        out = self.conv(feature, graph, fq=fq)
-        if not self.training:
-            fc, u, w = self.dot_product.similarity_parts(feature, aq=fq)
-            alpha = (torch.einsum("bik,bjk->bij", fc, feature)
-                     + u[:, :, None] + w[:, None, :])
-        else:
-            alpha = self.dot_product(feature, feature)
-        alpha = torch.matmul(adj, torch.relu(alpha))
-        alpha = torch.softmax(alpha, dim=1)                  # dim=1, gcn.py:117
-        return torch.matmul(alpha, out), alpha
+        fused = (self.use_pallas and not self.training and self.dir_num >= 2
+                 and not need_alpha and gcn_chain.supports(
+                     *feature.shape[:2], self.label_bias.shape[1],
+                     self.num_labels, feature.dtype))
+        # two spans: the GEMMs over the boxes' features, then the
+        # graph-local chain
+        with tracing.span("vqa.gcn.project", device=True):
+            fq = self._quantized_input(feature)
+            out_self, proj = self.project(feature, fq)
+            parts = (None if self.training
+                     else self.dot_product.similarity_parts(feature, aq=fq))
+        with tracing.span("vqa.gcn.chain", device=True):
+            if parts is None:
+                alpha = self.dot_product(feature, feature)
+            else:
+                # alpha = (f C) f^T + u_i + w_j; the [36, 36] contraction
+                # stays a batched product, as it stays in XLA
+                fc, u, w = parts
+                alpha = (torch.einsum("bik,bjk->bij", fc, feature)
+                         + u[:, :, None] + w[:, None, :])
+            alpha = torch.relu(alpha)
+            if fused:
+                out = gcn_chain.gcn_chain_fused(
+                    out_self, proj, alpha, graph.to(torch.int32).contiguous(),
+                    self.label_bias.to(out_self.dtype),
+                    num_labels=self.num_labels)
+                return out, None
+            out = self.combine(out_self, proj, graph)
+            adj = (graph != 0).to(feature.dtype)
+            alpha = torch.softmax(torch.matmul(adj, alpha), dim=1)  # gcn.py:117
+            return torch.matmul(alpha, out), alpha
 
     def forward(self, feature: torch.Tensor, graph: torch.Tensor
                 ) -> torch.Tensor:
