@@ -51,7 +51,10 @@ Phases, each of which raises (exit code 1) on failure:
 4. serve: the full-width Up-Down model (bf16, ``use_pallas=True``, weights
    from a seeded generator) answers a few batches of the int8 feed made by
    the port's data layer (``vqa_tpu_torch.data``), through
-   ``VQAModel.forward_vqa``; every kernel's launch count must rise, and the
+   ``VQAModel.forward_vqa``; every kernel's launch count must rise, the
+   question GRU must form its input gates per token (``ops/rnn.py``
+   ``ROUTES["gates"]`` once a request: 5,120 tokens, fewer than the
+   vocabulary table's rows), and the
    logits must agree with the same model whose kernels are swapped for
    their plain versions;
 5. decode: the full-width Up-Down caption model (BUTD decoder, bf16,
@@ -72,7 +75,9 @@ Phases, each of which raises (exit code 1) on failure:
    3 and 8), the VQA forward at B=16384, and the beam decode at B=4096
    (k=3, c_len=20) with the kernels and on the plain path
    (``use_pallas=False``), beside their times recorded before the wgmma
-   designs of those two kernels, by CUDA events;
+   designs of those two kernels, by CUDA events; the B=16384 forward and
+   one forward at B=32768 must take the question GRU's vocabulary-table
+   route (``ROUTES["table"]``, one gru_v2 launch a forward);
 7. train: the full-width Up-Down MTL model (VQA head and BUTD caption
    decoder, uncertainty-weighted loss, dropout 0.5 / 0.2, f32 masters with
    bf16 compute, ``use_pallas=True``, Adamax lr 2e-3, clip 0.25) trains a few
@@ -1478,6 +1483,7 @@ def run(args) -> int:
     from vqa_tpu_torch.ops.kernels import (
         _build, decode_att, feed_gemm, fused_attention, gcn_chain, gru, gru_v2,
         gru_v3, int8_matmul, lazyv_pool, vocab_topk)
+    from vqa_tpu_torch.ops import rnn as rnn_ops
     from vqa_tpu_torch.ops.quant import quantize_weight_per_col
     from vqa_tpu_torch.models.wrapper import set_model
     from vqa_tpu_torch.tools.beam import make_beam_search, tokens_to_captions
@@ -1934,13 +1940,18 @@ def run(args) -> int:
 
     with torch.inference_mode():
         _build.reset_launches()
+        rnn_ops.reset_routes()
         served = [model.forward_vqa(r) for r in requests]
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         log(f"serve: {SERVE_REQUESTS} requests of B={SERVE_BATCH} through "
-            f"VQAModel.forward_vqa; kernel launches {launches}")
+            f"VQAModel.forward_vqa; kernel launches {launches}; question "
+            f"GRU routes {rnn_ops.ROUTES}")
         for name in VQA_KERNELS:
             require(launches[name] > 0, f"the VQA path never launched {name}")
+        # B x T = 5120 tokens against 20,001 table rows: the per-token gates
+        require(rnn_ops.ROUTES == {"table": 0, "gates": SERVE_REQUESTS},
+                f"question GRU routes {rnn_ops.ROUTES} at B={SERVE_BATCH}")
         for score, label, target in served:
             require(score.shape == (SERVE_BATCH, ANS) and label.shape == (SERVE_BATCH,),
                     f"forward_vqa shapes {tuple(score.shape)}, {tuple(label.shape)}")
@@ -2139,15 +2150,37 @@ def run(args) -> int:
         batch = {"q": torch.randint(0, NTOKEN, (TIME_BATCH, Q_LEN), device=dev, generator=gen),
                  "img_q": x_q.view(TIME_BATCH, OBJS, V_DIM),
                  "img_scale": scale.view(TIME_BATCH, OBJS)}
+        rnn_ops.reset_routes()
         fwd_k, fwd_p = time_pair(lambda: model(batch), lambda: plain_model(batch), 3)
         forward_ms = fwd_k   # phase 18 holds the bench's fast rung against it
         log(f"time forward B={TIME_BATCH} int8 feed bf16: kernels {fwd_k:.3f} ms "
             f"({TIME_BATCH / fwd_k * 1e3:.1f} q/s), plain {fwd_p:.3f} ms "
             f"({TIME_BATCH / fwd_p * 1e3:.1f} q/s); recorded before dequant_matmul's "
             f"wgmma design: {RECORDED_FORWARD_MS} ms (PERF.md) [{card}]")
+        # the staged batches take the vocabulary table (20,001 rows <= B x T);
+        # the plain model runs the plain scan, which counts no route
+        require(rnn_ops.ROUTES["table"] > 0 and rnn_ops.ROUTES["gates"] == 0,
+                f"question GRU routes {rnn_ops.ROUTES} at B={TIME_BATCH}")
         if args.profile:
             profile_run("forward", lambda: model(batch), 1)
         del plain_model, batch, x_q, scale
+        # one forward at the bench's fast32 batch: the table route, one gru_v2
+        x_q, scale = int8_feed(BENCH_BATCH32 * OBJS, V_DIM)
+        batch = {"q": torch.randint(0, NTOKEN, (BENCH_BATCH32, Q_LEN), device=dev,
+                                    generator=gen),
+                 "img_q": x_q.view(BENCH_BATCH32, OBJS, V_DIM),
+                 "img_scale": scale.view(BENCH_BATCH32, OBJS)}
+        rnn_ops.reset_routes()
+        gru_before = _build.LAUNCHES["gru_v2"]
+        logits32 = model(batch)[0]
+        torch.cuda.synchronize()
+        log(f"forward B={BENCH_BATCH32}: question GRU routes {rnn_ops.ROUTES}, gru_v2 "
+            f"launches {_build.LAUNCHES['gru_v2'] - gru_before}")
+        require(rnn_ops.ROUTES == {"table": 1, "gates": 0}
+                and _build.LAUNCHES["gru_v2"] == gru_before + 1
+                and bool(torch.isfinite(logits32).all()),
+                f"the B={BENCH_BATCH32} forward: routes {rnn_ops.ROUTES}")
+        del batch, x_q, scale, logits32
 
         dec_plain = set_model(**dec_dims, use_pallas=False).to(device=dev, dtype=bf16).eval()
         dec_plain.load_state_dict(dec_model.state_dict())

@@ -19,7 +19,9 @@ import torch
 from vqa_tpu_torch.models.encoder import BaseEncoder
 from vqa_tpu_torch.models.wrapper import set_model
 from vqa_tpu_torch.ops import quant
+from vqa_tpu_torch.ops import rnn as rnn_mod
 from vqa_tpu_torch.ops.attention import MultiplyAttention
+from vqa_tpu_torch.ops.embedding import WordEmbedding
 from vqa_tpu_torch.ops.gcn import CorrelatedGraphConv
 from vqa_tpu_torch.ops.kernels import (
     _build, decode_att, feed_gemm, fused_attention, gcn_chain, gru, gru_v2,
@@ -282,6 +284,125 @@ def test_question_gru_route(spies, monkeypatch):
         counts["gru_last_state_v2"] = 0
     stub_false(monkeypatch, gru_v2)
     assert torch.equal(rnn(x), out) and counts["gru_last_state_v2"] == 0
+
+
+@pytest.fixture
+def xi_seen(monkeypatch):
+    """gru_v2 replaced by its plain version, keeping each call's input
+    gates xi; the route counters reset."""
+    seen = []
+
+    def spy(xi, wh, bh):
+        seen.append(xi)
+        return gru_v2.gru_last_state_v2_reference(xi, wh, bh)
+
+    monkeypatch.setattr(gru_v2, "gru_last_state_v2", spy)
+    rnn_mod.reset_routes()
+    return seen
+
+
+def question_gru(frozen=False, ntoken=30, in_dim=12, hidden=32):
+    """A bf16 serving word embedding (learned: ntoken + 1 rows; a frozen
+    GloVe-style table: ntoken + 4) and question GRU."""
+    gen = torch.Generator().manual_seed(0)
+    table = (np.random.default_rng(1).standard_normal((ntoken + 4, in_dim))
+             .astype(np.float32) if frozen else None)
+    emb = WordEmbedding(ntoken, in_dim, frozen_table=table, generator=gen)
+    rnn = SentenceEmbedding(in_dim, hidden, use_pallas=True, generator=gen)
+    return emb.eval().to(BF16), rnn.eval().to(BF16)
+
+
+def within_bf16_ulp(got, want):
+    """|got - want| at most one bf16 ulp of the larger magnitude."""
+    got, want = got.float(), want.float()
+    ulp = torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
+    return bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+@pytest.mark.parametrize("batch, t_len", [(8, 5), (8, 4), (8, 3), (16, 2)])
+def test_question_table_route_matches_gates_route(xi_seen, frozen, batch,
+                                                  t_len):
+    """The question GRU on the kernel route forms its input gates from rows
+    of the projected vocabulary table where the table has no more rows than
+    the batch has tokens (learned 31 rows, frozen 34: B x T = 40 and 32
+    against 24 and 32), else over every token; xi and the last state agree
+    with the per-token route within bf16 rounding."""
+    emb, rnn = question_gru(frozen)
+    rows = emb.matrix.shape[0]
+    tokens = torch.randint(0, rows, (batch, t_len),
+                           generator=torch.Generator().manual_seed(2))
+    route = "table" if rows <= batch * t_len else "gates"
+    got = rnn.forward_tokens(tokens, emb)
+    assert rnn_mod.ROUTES == {"table": int(route == "table"),
+                              "gates": int(route == "gates")}
+    want = rnn(emb(tokens))
+    assert rnn_mod.ROUTES["gates"] == 1 + (route == "gates")
+    assert got.shape == (batch, 32) and got.dtype == BF16
+    assert within_bf16_ulp(xi_seen[0], xi_seen[1])
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("case, route", [
+    ("serving", "table"), ("training", None), ("f32", None),
+    ("batch not a multiple of 8", None), ("more rows than tokens", "gates"),
+    ("kernel off", None)])
+def test_question_route_rule(xi_seen, case, route):
+    """The table only on the kernel route (eval, use_pallas, bf16, B % 8 ==
+    0) and only where rows <= B x T; the plain scan counts no route."""
+    emb, rnn = question_gru()
+    batch, t_len = {"batch not a multiple of 8": (12, 5),
+                    "more rows than tokens": (8, 3)}.get(case, (8, 5))
+    if case == "training":
+        rnn.train()
+    elif case == "f32":
+        emb, rnn = emb.float(), rnn.float()
+    elif case == "kernel off":
+        rnn.use_pallas = False
+    tokens = torch.randint(0, 31, (batch, t_len),
+                           generator=torch.Generator().manual_seed(3))
+    out = rnn.forward_tokens(tokens, emb)
+    assert rnn_mod.ROUTES == {"table": int(route == "table"),
+                              "gates": int(route == "gates")}
+    assert len(xi_seen) == int(route is not None)
+    if route is None:
+        torch.testing.assert_close(out, rnn(emb(tokens)), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("ntoken, route", [(30, "table"), (50, "gates")])
+def test_encoder_counts_one_question_route_a_forward(xi_seen, ntoken, route):
+    """A bf16 serving encoder (B x T = 40 tokens) counts one route a forward:
+    the table where the embedding has 31 rows, the gates where it has 51."""
+    enc = BaseEncoder(ntoken, 32, 12, 32, att_type="new", use_pallas=True,
+                      generator=torch.Generator().manual_seed(0))
+    enc = enc.eval().to(BF16)
+    batch = int8_batch()
+    with torch.no_grad():
+        for calls in (1, 2):
+            enc(batch)
+            assert rnn_mod.ROUTES == {"table": calls * (route == "table"),
+                                      "gates": calls * (route == "gates")}
+
+
+@pytest.mark.parametrize("frozen, which", [
+    (False, "embedding"), (False, "weight_ih"), (True, "bias_ih")])
+def test_question_table_follows_the_weights(xi_seen, frozen, which):
+    """No table outlives a forward: a weight changed in place between two
+    forwards changes the output, to what the per-token route gives."""
+    emb, rnn = question_gru(frozen)
+    tokens = torch.randint(0, 31, (8, 5),
+                           generator=torch.Generator().manual_seed(4))
+    first = rnn.forward_tokens(tokens, emb)
+    param = {"embedding": emb.matrix, "weight_ih": rnn.rnn.weight_ih_l0,
+             "bias_ih": rnn.rnn.bias_ih_l0}[which]
+    with torch.no_grad():
+        param.mul_(-1.5)
+    second = rnn.forward_tokens(tokens, emb)
+    assert rnn_mod.ROUTES == {"table": 2, "gates": 0}
+    assert not torch.equal(first, second)
+    torch.testing.assert_close(second.float(), rnn(emb(tokens)).float(),
+                               rtol=0, atol=2.0 ** -7)
 
 
 def int8_batch(batch=8, objs=6, v_dim=32):

@@ -143,7 +143,7 @@ class BaseEncoder(nn.Module):
         # attention (the v projection, the logits and softmax, the box
         # weights) and the pooling (the pooled or attended features)
         with tracing.span("vqa.encoder.question", device=True):
-            q = self.q_rnn(self.embedding(batch["q"]))      # [B, hidden]
+            q = self.q_rnn.forward_tokens(batch["q"], self.embedding)
             q_out = self.q_net(q)
         if "img_q" not in batch:
             v = batch["img"]

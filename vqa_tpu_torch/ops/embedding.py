@@ -43,10 +43,15 @@ class WordEmbedding(nn.Module):
         table[ntoken] = 0.0
         self.weight = nn.Parameter(table)
 
+    @property
+    def matrix(self) -> torch.Tensor:
+        """The token table [rows, embed_dim]: ``weight``, or the frozen
+        ``table``."""
+        return self.table if self.weight is None else self.weight
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: int [...] -> [..., embed_dim]."""
-        return F.embedding(tokens, self.table if self.weight is None
-                           else self.weight)
+        return F.embedding(tokens, self.matrix)
 
 
 def load_glove_table(vocab_path: str) -> np.ndarray:

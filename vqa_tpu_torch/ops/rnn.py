@@ -2,8 +2,11 @@
 
 Counterpart of ``vqa_tpu/ops/rnn.py``. The input projection ``x @ W_i`` for
 all time steps is one matmul up front; the loop carries only the recurrent
-``h @ W_h``. The question encoder's output is the last *padded* step, as in
-the reference (``output[:, -1]``). Gate order is torch's (GRU r, z, n; LSTM
+``h @ W_h``. On the GRU kernel's route a question's input gates may instead
+be rows of a projected vocabulary table
+(:meth:`SentenceEmbedding.forward_tokens`); :data:`ROUTES` counts which.
+The question encoder's output is the last *padded* step, as in the
+reference (``output[:, -1]``). Gate order is torch's (GRU r, z, n; LSTM
 i, f, g, o), and the parameters are named and shaped as ``nn.GRU``'s
 (``rnn.weight_ih_l0`` [G*H, in], ...), so reference weights load as they are.
 """
@@ -15,9 +18,22 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from vqa_tpu_torch.ops.embedding import WordEmbedding
 from vqa_tpu_torch.ops.kernels import gru_v2
 from vqa_tpu_torch.ops.linear import uniform_
+
+# calls of SentenceEmbedding's kernel route since the last reset, by how the
+# input gates xi were formed: "table" (rows of the projected vocabulary
+# table, gathered by token id) or "gates" (x @ w_ih.T + b_ih over every
+# token); the GRU kernel's launches count in ``_build.LAUNCHES`` as before
+ROUTES = {"table": 0, "gates": 0}
+
+
+def reset_routes() -> None:
+    for name in ROUTES:
+        ROUTES[name] = 0
 
 
 def gru_step(h: torch.Tensor, xi: torch.Tensor, hi: torch.Tensor
@@ -158,7 +174,9 @@ class SentenceEmbedding(nn.Module):
     ``use_pallas`` routes inference to the gru_v2 kernel on the JAX
     package's eligibility (GRU, 1 layer, unidirectional, bf16, B % 8 == 0)
     where the kernel takes the width (``gru_v2.supports``: H a multiple of
-    32). Every other configuration runs the plain scan.
+    32). Every other configuration runs the plain scan. ``forward_tokens``
+    embeds the tokens itself, and on the kernel route may take the input
+    gates from a projected vocabulary table.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, rnn_layer: int = 1,
@@ -178,12 +196,29 @@ class SentenceEmbedding(nn.Module):
                                3 if rnn_type == "GRU" else 4,
                                2 if bidirect else 1, generator)
 
-    def _kernel_eligible(self, x: torch.Tensor) -> bool:
+    def _kernel_eligible(self, batch: int, t_len: int,
+                         dtype: torch.dtype) -> bool:
         return (self.use_pallas and not self.training
                 and self.rnn_type == "GRU" and self.rnn_layer == 1
-                and not self.bidirect and x.dtype == torch.bfloat16
-                and x.shape[0] % 8 == 0
-                and gru_v2.supports(x.shape[1], self.hidden_dim, x.dtype))
+                and not self.bidirect and dtype == torch.bfloat16
+                and batch % 8 == 0
+                and gru_v2.supports(t_len, self.hidden_dim, dtype))
+
+    def _input_gates(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., in] -> x @ w_ih.T + b_ih [..., 3H] in x's dtype: the
+        product rounded to it, then the bias added in it (as JAX does)."""
+        w_ih, b_ih, _, _ = self.rnn.layer(0, 0)
+        return torch.matmul(x, w_ih.to(x.dtype).t()) + b_ih.to(x.dtype)
+
+    def _last_state_kernel(self, xi: torch.Tensor, route: str
+                           ) -> torch.Tensor:
+        """The input gates xi [B, T, 3H] -> the last state [B, H] through
+        gru_v2, counted in :data:`ROUTES` under ``route``."""
+        _, _, w_hh, b_hh = self.rnn.layer(0, 0)
+        ROUTES[route] += 1
+        out = gru_v2.gru_last_state_v2(xi, w_hh.to(xi.dtype).t(),
+                                       b_hh.to(xi.dtype))
+        return out.to(xi.dtype)
 
     def forward_all(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, T, in] -> every step's output [B, T, H * ndir], always
@@ -202,15 +237,32 @@ class SentenceEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, T, in] -> [B, H * ndir]."""
-        if self._kernel_eligible(x):
-            w_ih, b_ih, w_hh, b_hh = self.rnn.layer(0, 0)
-            # the input GEMM for all steps stays a plain matmul, as in JAX
-            xi_all = torch.matmul(x, w_ih.to(x.dtype).t()) + b_ih.to(x.dtype)
-            out = gru_v2.gru_last_state_v2(xi_all, w_hh.to(x.dtype).t(),
-                                           b_hh.to(x.dtype))
-            return out.to(x.dtype)
+        if self._kernel_eligible(x.shape[0], x.shape[1], x.dtype):
+            return self._last_state_kernel(self._input_gates(x), "gates")
         out = self.forward_all(x)
         if not self.bidirect:
             return out[:, -1]
         return torch.cat([out[:, -1, :self.hidden_dim],
                           out[:, 0, self.hidden_dim:]], dim=1)
+
+    def forward_tokens(self, tokens: torch.Tensor,
+                       embedding: WordEmbedding) -> torch.Tensor:
+        """tokens [B, T] int -> ``forward(embedding(tokens))`` [B, H * ndir].
+
+        On the kernel route, where the embedding's table [V, in] has no more
+        rows than the batch has tokens (V <= B * T), a token's input gates
+        are row ``tok`` of the projected vocabulary table ``table @ w_ih.T +
+        b_ih`` [V, 3H], gathered by id: they depend on the id alone (nothing
+        lies between the embedding and the GRU), and the table then costs no
+        more products, bytes or memory than the gates of every token. The
+        table is built in each call from the weights the call reads, and
+        rounds as the per-token gates do. Elsewhere, the embedded tokens go
+        through :meth:`forward`.
+        """
+        table = embedding.matrix
+        batch, t_len = tokens.shape
+        if (self._kernel_eligible(batch, t_len, table.dtype)
+                and table.shape[0] <= batch * t_len):
+            xi = F.embedding(tokens, self._input_gates(table))
+            return self._last_state_kernel(xi, "table")
+        return self.forward(embedding(tokens))
