@@ -551,8 +551,9 @@ LIBRARY_KERNELS = ("fused_multiply_attention_pool", "gru_last_state",
                    "gru_last_state_v3")
 # the path whose run gives each kernel's "launches" (the library kernels':
 # the entry point's four modes together, where they launch no time)
-# (the plain dequant_matmul epilogue: the attention's v-projection where
-# the gated one refuses the shapes; no path here launches it)
+# (the plain dequant_matmul epilogue is a library entry, as
+# gru_last_state is: no model path calls it; the attention runs the gated
+# one, or the plain PyTorch form where that refuses the shapes)
 MAIN_PATH = {**{k: "vqa" for k in VQA_KERNELS}, "dequant_matmul": "vqa",
              "vocab_topk_lse": "decode",
              **{k: "train" for k in TRAIN_KERNELS},

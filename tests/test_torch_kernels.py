@@ -100,9 +100,11 @@ def test_gated_logits_route_equals_the_unfused_attention(objs):
     """A bf16 serving encoder on the int8 feed (MultiplyAttention,
     use_pallas): its ``v_att``, ``v_w`` and ``v_sum`` through the gated
     route equal, bit for bit, those of the unfused module: the
-    v-projection, bias and ReLU as vp, then the attention's folded logits
+    v-projection (``W_v`` of the dequantized features), bias and ReLU as
+    vp, then the attention's folded logits
     and softmax over vp, then the pooling."""
     from vqa_tpu_torch.models.encoder import BaseEncoder
+    from vqa_tpu_torch.ops.quant import dequantize
 
     gen = torch.Generator().manual_seed(5)
     enc = BaseEncoder(30, 48, 8, 32, att_type="new", use_pallas=True,
@@ -116,7 +118,7 @@ def test_gated_logits_route_equals_the_unfused_attention(objs):
     with torch.no_grad():
         out = enc(batch)
         q = enc.q_rnn(enc.embedding(batch["q"]))
-        vp = enc.attention.W_v(batch["img_q"], x_scale=batch["img_scale"])
+        vp = enc.attention.W_v(dequantize(batch["img_q"], batch["img_scale"]))
         v_att = enc.attention(None, q, v_cache=vp)
     w = v_att[..., 0] * batch["img_scale"]
     assert torch.equal(out["v_att"], v_att)

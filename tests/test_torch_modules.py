@@ -23,6 +23,7 @@ from vqa_tpu.ops.rnn import SentenceEmbedding as JaxSentenceEmbedding
 from vqa_tpu_torch.models.encoder import BaseEncoder
 from vqa_tpu_torch.ops.attention import ConcatAttention, MultiplyAttention
 from vqa_tpu_torch.ops.linear import FCNet
+from vqa_tpu_torch.ops.quant import dequantize
 from vqa_tpu_torch.ops.rnn import SentenceEmbedding
 from vqa_tpu_torch.tools.convert import flax_to_state_dict
 
@@ -54,15 +55,16 @@ def test_fcnet_matches_jax(rng, layer, mid):
 
 
 def test_fcnet_int8_input_matches_dequantized_jax(rng):
-    """An int8 input with per-row scales == the JAX FCNet on the dequantized
-    features (the int8 feed's v-projection, plain version on the CPU)."""
+    """The int8 feed's plain v-projection (``W_v`` of the dequantized
+    features, as the encoder forms them) == the JAX FCNet on the
+    dequantized features."""
     x_q = rng.integers(-127, 128, (B, OBJS, V_DIM)).astype(np.int8)
     scale = (rng.random((B, OBJS)) * 0.03 + 1e-3).astype(np.float32)
     v = x_q.astype(np.float32) * scale[..., None]
     jm = JaxFCNet(HIDDEN)
     params = jm.init(jax.random.key(1), jnp.asarray(v))["params"]
     port = load(FCNet(V_DIM, HIDDEN), params)
-    got = port(torch.from_numpy(x_q), x_scale=torch.from_numpy(scale))
+    got = port(dequantize(torch.from_numpy(x_q), torch.from_numpy(scale)))
     close(got, jm.apply({"params": params}, jnp.asarray(v)))
 
 

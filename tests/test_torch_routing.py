@@ -413,14 +413,16 @@ def int8_batch(batch=8, objs=6, v_dim=32):
             "img_scale": torch.full((batch, objs), 0.02, dtype=BF16)}
 
 
-@pytest.mark.parametrize("stub", [None, "lazyv_pool", "feed_gemm", "gated"])
-def test_int8_feed_routes(spies, monkeypatch, stub):
+@pytest.mark.parametrize("stubs", [(), ("lazyv_pool",), ("gated",),
+                                   ("gated", "lazyv_pool")])
+def test_int8_feed_routes(spies, monkeypatch, stubs):
     """A bf16 serving encoder with MultiplyAttention on the int8 feed: the
     attention goes to dequant_matmul_gated_logits (the bias, ReLU and logit
     in the GEMM's epilogue) and the pooling to pool_int8 where their gates
-    hold. The gated entry's gate stubbed false sends the v-projection to
-    dequant_matmul; both feed_gemm gates false, to the plain version; the
-    pool's gate false, the pooling to its plain version: the same outputs."""
+    hold. The gated entry's gate stubbed false sends the attention to the
+    plain form (the dequantized features, then the attention), never to
+    the plain dequant_matmul; the pool's gate false, the pooling to its
+    plain version: the same outputs."""
     counts = spies(feed_gemm, "dequant_matmul_gated_logits")
     spies(feed_gemm, "dequant_matmul")
     spies(lazyv_pool, "pool_int8")
@@ -431,60 +433,82 @@ def test_int8_feed_routes(spies, monkeypatch, stub):
     want = enc(batch)
     assert counts == {"dequant_matmul_gated_logits": 1, "dequant_matmul": 0,
                       "pool_int8": 1}
-    if stub:
-        gates = {"lazyv_pool": [(lazyv_pool, "supports")],
-                 "feed_gemm": [(feed_gemm, "supports"),
-                               (feed_gemm, "supports_gated_logits")],
-                 "gated": [(feed_gemm, "supports_gated_logits")]}[stub]
-        for module, name in gates:
-            stub_false(monkeypatch, module, name)
+    if stubs:
+        gates = {"lazyv_pool": (lazyv_pool, "supports"),
+                 "gated": (feed_gemm, "supports_gated_logits")}
+        for stub in stubs:
+            stub_false(monkeypatch, *gates[stub])
         for name in counts:
             counts[name] = 0
         got = enc(batch)
         for key in ("v_att", "v_w", "v_sum"):
             assert torch.equal(got[key], want[key]), key
         assert counts == {
-            "dequant_matmul_gated_logits": int(stub == "lazyv_pool"),
-            "dequant_matmul": int(stub == "gated"),
-            "pool_int8": int(stub != "lazyv_pool")}
+            "dequant_matmul_gated_logits": int("gated" not in stubs),
+            "dequant_matmul": 0,
+            "pool_int8": int("lazyv_pool" not in stubs)}
 
 
-@pytest.mark.parametrize("case", ["training", "use_int8", "concat"])
+@pytest.mark.parametrize("case", ["training", "use_int8", "concat",
+                                  "training_grads"])
 def test_gated_logits_route_bypassed_by_the_encoder(spies, case):
     """The fused attention runs only on the bf16 int8-feed kernel route of
     MultiplyAttention at inference: not in training mode, not with the int8
-    GEMM (``use_int8``), not with ConcatAttention."""
+    GEMM (``use_int8``), not with ConcatAttention. In training an encoder
+    without ``with_v`` gives the ``v_att``, ``v_sum`` and ``W_v`` gradient
+    of the explicit dense composition, bit for bit: the dequantized
+    features, the attention, the pooling."""
     counts = spies(feed_gemm, "dequant_matmul_gated_logits")
+    spies(feed_gemm, "dequant_matmul")
     spies(int8_matmul, "int8_matmul_dequant_3d")
     enc = BaseEncoder(30, 32, 8, 32, att_type="base" if case == "concat" else "new",
                       use_pallas=True, use_int8=case == "use_int8",
                       generator=torch.Generator().manual_seed(0)).to(BF16)
-    enc.train(case == "training")
-    out = enc(int8_batch())
+    enc.train(case.startswith("training"))
+    batch = int8_batch()
+    torch.manual_seed(7)
+    out = enc(batch)
     assert counts["dequant_matmul_gated_logits"] == 0
+    assert counts["dequant_matmul"] == 0
     assert out["v_att"].shape == (8, 6, 1)
     assert counts["int8_matmul_dequant_3d"] == int(case == "use_int8")
+    if case == "training_grads":
+        img_q, img_scale = batch["img_q"], batch["img_scale"]
+        weight_v = enc.attention.W_v.main[0].weight_v
+        got = torch.autograd.grad(out["v_sum"].float().sum(), weight_v)[0]
+        torch.manual_seed(7)
+        q = enc.q_rnn.forward_tokens(batch["q"], enc.embedding)
+        v_att = enc.attention(quant.dequantize(img_q, img_scale), q)
+        v_sum = lazyv_pool.pool_int8_reference(
+            v_att[..., 0] * img_scale, img_q)
+        want = torch.autograd.grad(v_sum.float().sum(), weight_v)[0]
+        assert torch.equal(out["v_att"], v_att)
+        assert torch.equal(out["v_sum"], v_sum)
+        assert torch.equal(got, want)
 
 
 def test_gated_logits_route_bypassed_in_beam_mode(spies):
-    """MultiplyAttention.attend_int8 with beam-shaped queries [B, k, q_dim]
-    (a softmax over axis 2) projects v through dequant_matmul and takes the
-    unfused logits; a 2-D query on the same module takes the gated entry."""
+    """The encoder's int8-feed route with beam-shaped queries [B, k, q_dim]
+    (a softmax over axis 2) takes the plain form, equal to the attention
+    over the dequantized features; a 2-D query on the same encoder takes
+    the gated entry. Neither reaches the plain dequant_matmul."""
     counts = spies(feed_gemm, "dequant_matmul_gated_logits")
     spies(feed_gemm, "dequant_matmul")
-    att = MultiplyAttention(32, 16, 32,
-                            generator=torch.Generator().manual_seed(3))
-    att = att.eval().to(BF16)
+    enc = BaseEncoder(30, 32, 8, 16, att_type="new", use_pallas=True,
+                      generator=torch.Generator().manual_seed(3))
+    enc = enc.eval().to(BF16)
     batch = int8_batch()
     img_q, img_scale = batch["img_q"], batch["img_scale"]
     q = torch.randn(8, 3, 16).to(BF16)
-    got = att.attend_int8(img_q, img_scale, q, use_kernel=True)
-    assert got.shape == (8, 3, 6, 1)
-    assert counts == {"dequant_matmul_gated_logits": 0, "dequant_matmul": 1}
-    vp = att.project_v_int8(img_q, img_scale)
-    assert torch.equal(got, att(None, q, v_cache=vp))
-    att.attend_int8(img_q, img_scale, q[:, 0], use_kernel=True)
-    assert counts == {"dequant_matmul_gated_logits": 1, "dequant_matmul": 1}
+    with torch.no_grad():
+        got, v = enc.attend_feed(img_q, img_scale, q)
+        assert got.shape == (8, 3, 6, 1)
+        assert counts == {"dequant_matmul_gated_logits": 0,
+                          "dequant_matmul": 0}
+        assert torch.equal(v, quant.dequantize(img_q, img_scale))
+        assert torch.equal(got, enc.attention(v, q))
+        enc.attend_feed(img_q, img_scale, q[:, 0])
+    assert counts == {"dequant_matmul_gated_logits": 1, "dequant_matmul": 0}
 
 
 @pytest.mark.parametrize("stubs, want", [

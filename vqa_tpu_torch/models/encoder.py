@@ -22,8 +22,9 @@ from vqa_tpu_torch import tracing
 from vqa_tpu_torch.ops.attention import MultiplyAttention, set_att
 from vqa_tpu_torch.ops.embedding import WordEmbedding
 from vqa_tpu_torch.ops.gcn import GCN
-from vqa_tpu_torch.ops.kernels import lazyv_pool
+from vqa_tpu_torch.ops.kernels import feed_gemm, lazyv_pool
 from vqa_tpu_torch.ops.linear import FCNet
+from vqa_tpu_torch.ops.quant import dequantize
 from vqa_tpu_torch.ops.rnn import SentenceEmbedding
 
 
@@ -60,8 +61,8 @@ class CaptionEncoder(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         if "img_q" in batch:
             img_q, img_scale = batch["img_q"], batch["img_scale"]
-            out = {"v": img_q.to(img_scale.dtype) * img_scale[..., None],
-                   "v_q8": img_q, "v_w": img_scale}
+            out = {"v": dequantize(img_q, img_scale), "v_q8": img_q,
+                   "v_w": img_scale}
         else:
             out = {"v": batch["img"]}
         return _caption(out, batch, self.embedding)
@@ -73,14 +74,14 @@ class BaseEncoder(nn.Module):
 
     ``use_pallas`` routes inference through the hand-written kernels: the
     question GRU (see :class:`SentenceEmbedding`) and, on a bf16 int8 feed,
-    the dequant-GEMM v-projection (for MultiplyAttention, with the bias,
-    ReLU and logits in its epilogue: ``attend_int8``) and the lazy-v
-    pooling. Those kernels have
-    no backward: in training mode the plain versions run, with dropout
-    active, as in the JAX package. ``use_int8`` runs the attention's
-    v-projection over the int8 feed as one int8 GEMM at inference
-    (``ops/quant.py``; ``use_pallas`` picks the kernel's 3-D entry, as it
-    picks JAX's 3-D Pallas kernel).
+    the lazy-v pooling and MultiplyAttention's gated dequant GEMM (the
+    v-projection with the bias, ReLU and logits in its epilogue). Those
+    kernels have no backward: in training mode the plain versions run, with
+    dropout active, as in the JAX package. ``use_int8`` runs the
+    attention's v-projection over the int8 feed as one int8 GEMM at
+    inference (``ops/quant.py``; ``use_pallas`` picks the kernel's 3-D
+    entry, as it picks JAX's 3-D Pallas kernel). :meth:`attend_feed` picks
+    the int8 feed's attention route.
 
     On the int8 feed the outputs follow their readers: ``with_v_sum`` (a
     VQA predictor reads the pooled ``v_sum``) and ``with_v`` (a caption
@@ -154,40 +155,56 @@ class BaseEncoder(nn.Module):
             return {"v": v, "q": q_out, "v_att": v_att}
 
         img_q, img_scale = batch["img_q"], batch["img_scale"]
-        # the kernels take bf16 operands: an f32 model runs the plain path,
-        # as the GRU kernel's own bf16 rule does (the int8 GEMM takes both)
-        use_kernel = (self.use_pallas and not self.training
-                      and img_scale.dtype == torch.bfloat16)
-        int8_gemm = self.use_int8 and not self.training
-        concat = not isinstance(self.attention, MultiplyAttention)
         with tracing.span("vqa.encoder.attention", device=True):
-            # the dequantized features, only where a reader needs them dense
-            v = (img_q.to(img_scale.dtype) * img_scale[..., None]
-                 if self.with_v or (concat and not int8_gemm) else None)
-            if int8_gemm:
-                vp = self.attention.project_v_int8(img_q, img_scale,
-                                                   use_kernel=self.use_pallas,
-                                                   use_int8=True)
-                v_att = self.attention(v, q, v_cache=vp)
-            elif concat or (v is not None and not use_kernel):
-                # the same product as project_v_int8's plain path, from the
-                # features already formed (the JAX package's training path)
-                v_att = self.attention(v, q)
-            else:
-                v_att = self.attention.attend_int8(img_q, img_scale, q,
-                                                   use_kernel=use_kernel)
+            v_att, v = self.attend_feed(img_q, img_scale, q)
             w = v_att[..., 0] * img_scale.to(v_att.dtype)
         out = {"q": q_out, "v_att": v_att, "v_q8": img_q, "v_w": w}
         with tracing.span("vqa.encoder.pool", device=True):
             if self.with_v_sum:
                 pool = (lazyv_pool.pool_int8
-                        if use_kernel
+                        if self._on_kernels(img_scale)
                         and lazyv_pool.supports(*img_q.shape, w.dtype)
                         else lazyv_pool.pool_int8_reference)
                 out["v_sum"] = pool(w, img_q)
             if self.with_v:
                 out["v"] = v_att * v
         return out
+
+    def _on_kernels(self, img_scale: torch.Tensor) -> bool:
+        # the kernels take bf16 operands: an f32 model runs the plain path,
+        # as the GRU kernel's own bf16 rule does (the int8 GEMM takes both)
+        return (self.use_pallas and not self.training
+                and img_scale.dtype == torch.bfloat16)
+
+    def attend_feed(self, img_q: torch.Tensor, img_scale: torch.Tensor,
+                    q: torch.Tensor):
+        """The attention of q over the int8 feed by one of three routes ->
+        (v_att, the dequantized features where they were formed, else
+        None). ``with_v`` forms them on every route.
+
+        - ``use_int8`` at inference: the v-projection as one int8 GEMM over
+          the payload (``project_v_int8``), then the attention;
+        - MultiplyAttention on the kernels (eval, ``use_pallas``, a bf16
+          scale) with a 2-D q, where the gated dequant GEMM takes the
+          shapes: the bias, ReLU and folded logit in the GEMM's epilogue
+          (``attend_int8``);
+        - else the plain form, the JAX package's: the dequantized features,
+          then the attention.
+        """
+        att = self.attention
+        v = dequantize(img_q, img_scale) if self.with_v else None
+        if self.use_int8 and not self.training:
+            vp = att.project_v_int8(img_q, img_scale, self.use_pallas)
+            return att(v, q, v_cache=vp), v
+        b, objs, k = img_q.shape
+        if (isinstance(att, MultiplyAttention) and q.dim() == 2
+                and self._on_kernels(img_scale)
+                and feed_gemm.supports_gated_logits(
+                    b * objs, k, att.W_v.main[0].weight_v.shape[0], objs,
+                    img_scale.dtype, q.dtype)):
+            return att.attend_int8(img_q, img_scale, q), v
+        v = dequantize(img_q, img_scale) if v is None else v
+        return att(v, q), v
 
 
 class RelationEncoder(BaseEncoder):

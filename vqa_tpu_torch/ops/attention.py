@@ -6,7 +6,8 @@ question is [B, k, q_dim] against boxes shared by the k beams of an image,
 and the weights are [B, k, num_objs, 1], a softmax over axis 2. The
 v-side projection ``project_v`` has no question input, so a decoder
 computes it once per batch and passes it to every step as ``v_cache``;
-``project_v_int8`` is the same projection read from the int8 feed.
+``project_v_int8`` is the same projection as one int8 GEMM over the int8
+feed.
 """
 
 from __future__ import annotations
@@ -42,17 +43,13 @@ class ConcatAttention(nn.Module):
         return torch.matmul(v, w[:, :self.v_dim].t())
 
     def project_v_int8(self, img_q: torch.Tensor, img_scale: torch.Tensor,
-                       use_kernel: bool = False,
-                       use_int8: bool = False) -> torch.Tensor:
+                       use_pallas: bool) -> torch.Tensor:
         """``project_v`` of the dequantized feed ``img_q * img_scale``, in
-        the scale's dtype. ``use_int8``: the v rows of the concat kernel as
-        one int8 GEMM over the payload (``use_kernel`` picks the 3-D kernel
-        entry); else the dense features are formed and projected."""
-        if use_int8:
-            return self.sequence[0].int8_forward(
-                img_q, img_scale, use_pallas=use_kernel, in_cols=self.v_dim,
-                add_bias=False)
-        return self.project_v(img_q.to(img_scale.dtype) * img_scale[..., None])
+        the scale's dtype: the v rows of the concat kernel as one int8 GEMM
+        over the payload (``use_pallas`` picks the kernel's 3-D entry)."""
+        return self.sequence[0].int8_forward(
+            img_q, img_scale, use_pallas=use_pallas, in_cols=self.v_dim,
+            add_bias=False)
 
     def forward(self, v: Optional[torch.Tensor], q: torch.Tensor, *,
                 v_cache: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -92,36 +89,25 @@ class MultiplyAttention(nn.Module):
         return self.W_v(v)
 
     def project_v_int8(self, img_q: torch.Tensor, img_scale: torch.Tensor,
-                       use_kernel: bool = False,
-                       use_int8: bool = False) -> torch.Tensor:
+                       use_pallas: bool) -> torch.Tensor:
         """``W_v`` of the dequantized feed ``img_q * img_scale`` [B, objs,
-        v_dim], read from the int8 payload -> [B, objs, hidden] in the
-        scale's dtype: as one int8 GEMM with ``use_int8`` (``use_kernel``
-        picks the 3-D kernel entry), else through the dequant-GEMM kernel
-        when ``use_kernel``, else its plain version."""
-        return self.W_v(img_q, x_scale=img_scale, use_kernel=use_kernel,
-                        int8_gemm=use_int8)
+        v_dim] -> [B, objs, hidden] in the scale's dtype, as one int8 GEMM
+        over the payload with the ReLU in its epilogue (``use_pallas``
+        picks the kernel's 3-D entry)."""
+        return self.W_v.main[0].int8_forward(img_q, img_scale,
+                                             use_pallas=use_pallas, relu=True)
 
     def attend_int8(self, img_q: torch.Tensor, img_scale: torch.Tensor,
-                    q: torch.Tensor, use_kernel: bool = False
-                    ) -> torch.Tensor:
-        """The weights of q over the int8 feed ``img_q * img_scale`` [B,
-        objs, v_dim], as :meth:`forward` gives them. At inference with
-        ``use_kernel`` and a 2-D q, where the gated dequant GEMM takes the
-        shapes (``feed_gemm.supports_gated_logits``), the bias, ReLU and
-        folded logit run in the GEMM's epilogue at the unfused form's
-        rounding points, and the [B, objs, hidden] projection is never
-        formed; else
-        :meth:`project_v_int8` (through ``dequant_matmul`` with
-        ``use_kernel``), then :meth:`forward`."""
+                    q: torch.Tensor) -> torch.Tensor:
+        """The weights of q [B, q_dim] over the int8 feed ``img_q *
+        img_scale`` [B, objs, v_dim], as :meth:`forward` gives them at
+        inference, through the gated dequant GEMM: the bias, ReLU and
+        folded logit run in its epilogue at the unfused form's rounding
+        points, and the [B, objs, hidden] projection is never formed. The
+        caller checks that the kernel takes the shapes
+        (``feed_gemm.supports_gated_logits``)."""
         fc = self.W_v.main[0]
         b, objs, k = img_q.shape
-        n = fc.weight_v.shape[0]
-        if not (use_kernel and not self.training and q.dim() == 2
-                and fc.tp is None and feed_gemm.supports_gated_logits(
-                    b * objs, k, n, objs, img_scale.dtype, q.dtype)):
-            vp = self.project_v_int8(img_q, img_scale, use_kernel=use_kernel)
-            return self(None, q, v_cache=vp)
         wq = self.linear.fold_vector(self.W_q(q))          # [B, hidden]
         w = fc.weight(img_scale.dtype)
         logits = feed_gemm.dequant_matmul_gated_logits(

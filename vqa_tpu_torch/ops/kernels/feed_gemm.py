@@ -17,7 +17,10 @@ is rounded to bf16 before the GEMM, which accumulates in f32; the output is
 epilogue: MultiplyAttention's logits at inference, ``relu(x @ w + bias)``
 contracted with a per-image gate, so that the [M, N] projection is never
 written. It rounds where the unfused form rounds (the projection, the bias
-and the ReLU in bf16) and sums the gated products in f32.
+and the ReLU in bf16) and sums the gated products in f32. That is the
+entry the model calls (``models/encoder.py`` ``BaseEncoder.attend_feed``);
+the plain :func:`dequant_matmul` stands for the TPU kernel as a library
+entry: no model path calls it.
 """
 
 from __future__ import annotations

@@ -31,9 +31,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from vqa_tpu_torch.ops.kernels import feed_gemm
 from vqa_tpu_torch.ops.quant import int8_dot
 
 
@@ -74,38 +72,13 @@ class WNDense(nn.Module):
             scale = self.tp.enter(scale)
         return (scale * v).to(dtype)
 
-    def forward(self, x: torch.Tensor, *,
-                x_scale: Optional[torch.Tensor] = None,
-                use_kernel: bool = False, int8_gemm: bool = False,
-                relu: bool = False) -> torch.Tensor:
-        """``x @ W.T + b``, then the ReLU with ``relu``. An int8 ``x`` is a
-        quantized activation with per-row scales ``x_scale``; the output is
-        in the scale's dtype. With ``int8_gemm`` it goes through the int8
-        GEMM (:meth:`int8_forward`, ``use_kernel`` picking the 3-D kernel
-        entry); else the product is ``(x * x_scale) @ W.T``, through the
-        dequant-GEMM kernel when ``use_kernel`` and the kernel takes the
-        shape (``feed_gemm.supports``), else its plain version."""
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ W.T + b`` in the input's dtype."""
         if self.tp is not None:
             x = self.tp.enter(x)
-        if x.dtype == torch.int8:
-            if x_scale is None:
-                raise ValueError("an int8 input needs x_scale")
-            if int8_gemm:
-                return self.int8_forward(x, x_scale, use_pallas=use_kernel,
-                                         relu=relu)
-            w = self.weight(x_scale.dtype)
-            x2 = x.reshape(-1, x.shape[-1])
-            gemm = (feed_gemm.dequant_matmul
-                    if use_kernel and feed_gemm.supports(*x2.shape, w.shape[0],
-                                                         w.dtype)
-                    else feed_gemm.dequant_matmul_reference)
-            y = gemm(x2, x_scale.reshape(-1), w.t())
-            y = y.reshape(*x.shape[:-1], -1)
-        else:
-            y = torch.matmul(x, self.weight(x.dtype).t())
+        y = torch.matmul(x, self.weight(x.dtype).t())
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        y = F.relu(y) if relu else y
         return y if self.tp is None else self.tp.gather(y)
 
     def int8_forward(self, x_q: torch.Tensor, x_scale: torch.Tensor, *,
@@ -157,16 +130,8 @@ class FCNet(nn.Module):
         slots.append(nn.ReLU())
         self.main = nn.Sequential(*slots)
 
-    def forward(self, x: torch.Tensor, *,
-                x_scale: Optional[torch.Tensor] = None,
-                use_kernel: bool = False,
-                int8_gemm: bool = False) -> torch.Tensor:
-        """``x_scale``/``use_kernel``/``int8_gemm`` go to the first layer,
-        for an int8 ``x`` (see :meth:`WNDense.forward`), which applies the
-        ReLU of the next slot itself: in the int8 GEMM's epilogue."""
-        x = self.main[0](x, x_scale=x_scale, use_kernel=use_kernel,
-                         int8_gemm=int8_gemm, relu=True)
-        return self.main[2:](x)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.main(x)
 
 
 class Dense(nn.Module):

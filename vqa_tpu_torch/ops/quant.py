@@ -26,6 +26,13 @@ import torch
 from vqa_tpu_torch.ops.kernels import int8_matmul
 
 
+def dequantize(x_q: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+    """The int8 feed's features, ``x_q * x_scale`` for x_q [..., in] int8
+    and per-row scales x_scale [...], rounded as JAX rounds them: the
+    payload in the scale's dtype, then the product in that dtype."""
+    return x_q.to(x_scale.dtype) * x_scale[..., None]
+
+
 def quantize_rows(x: torch.Tensor):
     """Dynamic symmetric per-row int8 quantization of [..., in] activations
     -> (x_q int8, x_scale [...] float32). The abs-max is taken in the input
