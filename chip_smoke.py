@@ -77,7 +77,10 @@ Phases, each of which raises (exit code 1) on failure:
    (``use_pallas=False``), beside their times recorded before the wgmma
    designs of those two kernels, by CUDA events; the B=16384 forward and
    one forward at B=32768 must take the question GRU's vocabulary-table
-   route (``ROUTES["table"]``, one gru_v2 launch a forward);
+   route (``ROUTES["table"]``, one gru_v2 launch a forward) and run one
+   ``WNDense`` at a padded width (``linear.ROUTES["aligned"]``, the
+   classifier's last layer), whose GEMM alone at B=32768 must not be
+   cuBLAS's sm75 fallback (its kernel names logged);
 7. train: the full-width Up-Down MTL model (VQA head and BUTD caption
    decoder, uncertainty-weighted loss, dropout 0.5 / 0.2, f32 masters with
    bf16 compute, ``use_pallas=True``, Adamax lr 2e-3, clip 0.25) trains a few
@@ -669,6 +672,20 @@ def compare_beams(name: str, got, want, start_id: int) -> float:
         f"tokens agreeing overall {(tok == w_tok).float().mean().item():.4f}")
     require(bool((tok[:, 0] == start_id).all()), "beams must start with <start>")
     return agree
+
+
+def device_kernels(run) -> list:
+    """(kernel name, device ms) of one call of ``run`` after a warm call,
+    under torch.profiler, the longest first."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted(((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+                   if e.device_time_total > 0 and e.device_type.name == "CUDA"),
+                  key=lambda kv: -kv[1])
 
 
 def profile_run(name: str, run, steps: int) -> None:
@@ -1484,6 +1501,7 @@ def run(args) -> int:
     from vqa_tpu_torch.ops.kernels import (
         _build, decode_att, feed_gemm, fused_attention, gcn_chain, gru, gru_v2,
         gru_v3, int8_matmul, lazyv_pool, vocab_topk)
+    from vqa_tpu_torch.ops import linear as linear_ops
     from vqa_tpu_torch.ops import rnn as rnn_ops
     from vqa_tpu_torch.ops.quant import quantize_weight_per_col
     from vqa_tpu_torch.models.wrapper import set_model
@@ -2172,16 +2190,36 @@ def run(args) -> int:
                  "img_q": x_q.view(BENCH_BATCH32, OBJS, V_DIM),
                  "img_scale": scale.view(BENCH_BATCH32, OBJS)}
         rnn_ops.reset_routes()
+        linear_ops.reset_routes()
         gru_before = _build.LAUNCHES["gru_v2"]
         logits32 = model(batch)[0]
         torch.cuda.synchronize()
         log(f"forward B={BENCH_BATCH32}: question GRU routes {rnn_ops.ROUTES}, gru_v2 "
-            f"launches {_build.LAUNCHES['gru_v2'] - gru_before}")
+            f"launches {_build.LAUNCHES['gru_v2'] - gru_before}, WNDense routes "
+            f"{linear_ops.ROUTES}")
+        # WNDense.forward: q_net, the attention's W_q, v_net and the
+        # classifier's first layer plain; its 3129-wide last layer aligned
         require(rnn_ops.ROUTES == {"table": 1, "gates": 0}
+                and linear_ops.ROUTES == {"aligned": 1, "plain": 4}
                 and _build.LAUNCHES["gru_v2"] == gru_before + 1
                 and bool(torch.isfinite(logits32).all()),
-                f"the B={BENCH_BATCH32} forward: routes {rnn_ops.ROUTES}")
+                f"the B={BENCH_BATCH32} forward: routes {rnn_ops.ROUTES}, "
+                f"{linear_ops.ROUTES}")
         del batch, x_q, scale, logits32
+        # the classifier's last layer alone: its GEMM at the padded width
+        last = model.predictor.classifier.main[-2]
+        h = torch.relu(torch.randn(BENCH_BATCH32, last.weight_v.shape[1], device=dev,
+                                   dtype=bf16, generator=gen))
+        kernels = device_kernels(lambda: last(h))
+        gemms = [(name, ms) for name, ms in kernels
+                 if any(x in name for x in ("gemm", "nvjet", "cutlass", "Gemm"))]
+        log(f"classifier GEMM B={BENCH_BATCH32} [{BENCH_BATCH32}, "
+            f"{last.weight_v.shape[1]}] x [{last.weight_v.shape[1]}, "
+            f"{last.weight_v.shape[0]}]: " + ", ".join(
+                f"{name[:80]} {ms:.4f} ms" for name, ms in gemms) + f" [{card}]")
+        require(len(gemms) == 1 and "cutlass_75" not in gemms[0][0],
+                f"the classifier's GEMM at B={BENCH_BATCH32}: {gemms}")
+        del h
 
         dec_plain = set_model(**dec_dims, use_pallas=False).to(device=dev, dtype=bf16).eval()
         dec_plain.load_state_dict(dec_model.state_dict())

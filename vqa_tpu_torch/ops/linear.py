@@ -22,6 +22,13 @@ Counterparts of ``vqa_tpu/ops/linear.py``:
 dimension (``parallel/mesh.py`` ``shard_params`` sets ``tp``): the product
 with the slice, then the all-gather of the slices; ``WNDense``'s weight norm
 sums its squares over every slice.
+
+An unsharded ``WNDense`` whose output width is over 8 and not a multiple of
+8 (the 3129-answer classifier) runs its product at the width padded to the
+next multiple of 8, so that the logits' rows are 16-byte aligned and cuBLAS
+can pick its Hopper GEMMs: zero weight rows and bias entries, the bias in
+the GEMM's epilogue, the logits a view of the first ``out_dim`` columns.
+:data:`ROUTES` counts ``WNDense.forward``'s calls by route.
 """
 
 from __future__ import annotations
@@ -31,8 +38,18 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from vqa_tpu_torch.ops.quant import int8_dot
+
+# WNDense.forward's calls since the last reset: "aligned" (the product at
+# the output width padded to a multiple of 8) or "plain"
+ROUTES = {"aligned": 0, "plain": 0}
+
+
+def reset_routes() -> None:
+    for name in ROUTES:
+        ROUTES[name] = 0
 
 
 def uniform_(t: torch.Tensor, bound: float,
@@ -73,7 +90,19 @@ class WNDense(nn.Module):
         return (scale * v).to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x @ W.T + b`` in the input's dtype."""
+        """``x @ W.T + b`` in the input's dtype. At a misaligned output
+        width (see the module's docstring) the bias is added to the product
+        before its one rounding; otherwise after it, in the input's
+        dtype."""
+        out_dim = self.weight_v.shape[0]
+        if self.tp is None and out_dim > 8 and out_dim % 8:
+            ROUTES["aligned"] += 1
+            pad = -out_dim % 8
+            w = F.pad(self.weight(x.dtype), (0, 0, 0, pad))
+            b = (None if self.bias is None
+                 else F.pad(self.bias.to(x.dtype), (0, pad)))
+            return F.linear(x, w, b)[..., :out_dim]
+        ROUTES["plain"] += 1
         if self.tp is not None:
             x = self.tp.enter(x)
         y = torch.matmul(x, self.weight(x.dtype).t())
