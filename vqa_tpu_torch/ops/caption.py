@@ -15,7 +15,9 @@ and the commented per-step implementation of the reference:
 Padded steps count as 0 in the max, not as -inf (the commented reference
 fills its output buffer with zeros and writes only the valid steps), so a
 row whose valid activations are all negative pools to 0. Both RNNs run the
-plain scan (:meth:`SentenceEmbedding.forward_all`).
+plain scan (:meth:`SentenceEmbedding.forward_all`). The span
+``vqa.caption.embed`` (``vqa_tpu_torch/tracing.py``, timed on the stream
+too) holds the five steps.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.ops.linear import LReLUNet
 from vqa_tpu_torch.ops.rnn import SentenceEmbedding
 
@@ -74,10 +77,11 @@ class CaptionEmbedding(nn.Module):
         """v [B, v_dim], q [B, q_dim], c [B, T, embed] (the embedded
         caption), ``cap_len`` [B] the valid lengths or None (a plain max
         over all T steps) -> [B, hidden]."""
-        h_word = self.word_rnn.forward_all(c)
-        gate = self.attention(h_word, v, q)
-        out = self.fcnet(self.caption_rnn.forward_all(gate * h_word))
-        if cap_len is not None:
-            step = torch.arange(c.shape[1], device=c.device)[None, :, None]
-            out = torch.where(step < cap_len[:, None, None], out, 0.0)
-        return torch.amax(out, dim=1)
+        with tracing.span("vqa.caption.embed", device=True):
+            h_word = self.word_rnn.forward_all(c)
+            gate = self.attention(h_word, v, q)
+            out = self.fcnet(self.caption_rnn.forward_all(gate * h_word))
+            if cap_len is not None:
+                step = torch.arange(c.shape[1], device=c.device)[None, :, None]
+                out = torch.where(step < cap_len[:, None, None], out, 0.0)
+            return torch.amax(out, dim=1)

@@ -16,6 +16,14 @@ The caption loss is the decoder's teacher-forced forward and
 ``caption_loss`` route of ``get_loss``: the step launches no
 decode-attention kernel. The sigmoid output of the ``q-cap`` head is
 treated as logits by ``per_sample_bce``, the reference's double squash.
+
+Three spans (``vqa_tpu_torch/tracing.py``, timed on the stream too) mark
+the loss's parts: ``vqa.select.candidates`` (the expansion of ``v`` and
+``q``, the embedding of every candidate and the predictor over all
+``B * n_cap`` rows), ``vqa.select.pick`` (the per-candidate BCE, the
+argmin and the gathers of the chosen rows) and ``vqa.select.caption``
+(the chosen caption's decoder forward and its CE). :data:`ROWS` counts
+the questions and candidates that :func:`get_select_loss` has scored.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from vqa_tpu_torch import tracing
 from vqa_tpu_torch.models.wrapper import (
     VQAModel, _at_least_f32, ce_for_language_model, compute_score)
 from vqa_tpu_torch.training.optim import Optimizer
@@ -31,6 +40,15 @@ from vqa_tpu_torch.training.state import TrainState, make_train_step
 
 # the encoder's inputs among the all-candidates batch's keys
 _ENCODER_KEYS = ("img", "img_q", "img_scale", "q", "graph", "sem_graph")
+
+# get_select_loss's rows since the last reset: the questions and the
+# candidate captions scored for them
+ROWS = {"questions": 0, "candidates": 0}
+
+
+def reset_rows() -> None:
+    for name in ROWS:
+        ROWS[name] = 0
 
 
 def per_sample_bce(predict: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -75,38 +93,45 @@ def get_select_loss(mdl: VQAModel, batch: Dict[str, torch.Tensor],
     c_all, cap_len_all = batch["c_all"], batch["cap_len_all"]
     b, n_cap, c_len = c_all.shape
 
+    ROWS["questions"] += b
+    ROWS["candidates"] += b * n_cap
+
     # every candidate's VQA prediction: each question's rows repeated in
     # place, so that row b * n_cap + j is question b with caption j
-    c_emb = mdl.encoder.embed(c_all)                       # [B, n, T, E]
-    predict = mdl.predictor({
-        "v": v.repeat_interleave(n_cap, dim=0),
-        "q": q.repeat_interleave(n_cap, dim=0),
-        "c": c_emb.reshape(b * n_cap, c_len, -1),
-        "cap_len": cap_len_all.reshape(b * n_cap)})       # [B * n, A]
-    target = _at_least_f32(batch["a"])
-    per = per_sample_bce(predict, target.repeat_interleave(n_cap, dim=0)
-                         ).reshape(b, n_cap)
-
-    # the most relevant candidate has the lowest VQA loss; the choice is
-    # not differentiated, the chosen path is
-    sel = torch.argmin(per.detach(), dim=1)                # [B]
-    rows = torch.arange(b, device=sel.device)
-    loss_vqa = per[rows, sel].mean()
-    sel_predict = predict.reshape(b, n_cap, -1)[rows, sel]
+    with tracing.span("vqa.select.candidates", device=True):
+        c_emb = mdl.encoder.embed(c_all)                   # [B, n, T, E]
+        predict = mdl.predictor({
+            "v": v.repeat_interleave(n_cap, dim=0),
+            "q": q.repeat_interleave(n_cap, dim=0),
+            "c": c_emb.reshape(b * n_cap, c_len, -1),
+            "cap_len": cap_len_all.reshape(b * n_cap)})   # [B * n, A]
+    with tracing.span("vqa.select.pick", device=True):
+        target = _at_least_f32(batch["a"])
+        per = per_sample_bce(predict, target.repeat_interleave(n_cap, dim=0)
+                             ).reshape(b, n_cap)
+        # the most relevant candidate has the lowest VQA loss; the choice
+        # is not differentiated, the chosen path is
+        sel = torch.argmin(per.detach(), dim=1)            # [B]
+        rows = torch.arange(b, device=sel.device)
+        loss_vqa = per[rows, sel].mean()
+        sel_predict = predict.reshape(b, n_cap, -1)[rows, sel]
     writes = {"train/loss": loss_vqa,
               "train/score": torch.sum(compute_score(sel_predict, target))}
 
-    log_vars = mdl.log_vars if mdl.mtl_active else None
+    # the uncertainty weights exp(-s_i) in f32, as get_loss forms them: in
+    # the compute dtype exp(-s) rounds by up to 2**-9 near 1
+    log_vars = mdl.log_vars.float() if mdl.mtl_active else None
     loss = (torch.exp(-log_vars[0]) * loss_vqa + log_vars[0]
             if log_vars is not None else loss_vqa)
     if mdl.generator is not None:
-        c_sel = c_all[rows, sel]                           # [B, T]
-        caption = mdl.generator({"v": v, "c": mdl.encoder.embed(c_sel),
-                                 "c_target": c_sel,
-                                 "cap_len": cap_len_all[rows, sel]})
-        loss_cap = ce_for_language_model(caption["predict"],
-                                         caption["target"], caption["mask"],
-                                         token_count)
+        with tracing.span("vqa.select.caption", device=True):
+            c_sel = c_all[rows, sel]                       # [B, T]
+            caption = mdl.generator({"v": v, "c": mdl.encoder.embed(c_sel),
+                                     "c_target": c_sel,
+                                     "cap_len": cap_len_all[rows, sel]})
+            loss_cap = ce_for_language_model(
+                caption["predict"], caption["target"], caption["mask"],
+                token_count)
         writes["train/cap/loss"] = loss_cap
         loss = loss + (torch.exp(-log_vars[1]) * loss_cap + log_vars[1]
                        if log_vars is not None else loss_cap)
