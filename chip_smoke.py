@@ -41,7 +41,7 @@ Phases, each of which raises (exit code 1) on failure:
    M=100, K=64 and 80); its gated epilogue (dequant_matmul_gated_logits,
    the serving attention's logits) at B=1024, 1003 and 32768 and at 10
    boxes with N=1000 and K=80, two calls bit-equal; pool_int8 at B=1024,
-   1003 and 32768;
+   1003 and 32768; attended_int8 bit for bit at B=8192, 3 and 8191;
    vocab_topk_lse at R=12288 with k = 1, 3
    and 8, and at R=3001, R=8 and V=1000 with an exact tie planted across
    tiles and vocabulary splits, which must go to the lower index; and at
@@ -108,16 +108,19 @@ Phases, each of which raises (exit code 1) on failure:
    ``use_pallas=True``, ``use_int8=True``, seeded weights) answers the
    serve phase's requests with their spatial graphs (the port's data layer
    writes them) through ``VQAModel.forward_vqa``: gru_v2, the int8 GEMM
-   (the 3-D entry once, the 2-D entry three times a forward) and
-   gcn_chain_fused must launch, dequant_matmul(_gated_logits) and
-   pool_int8 must not, and
+   (the 3-D entry once, the 2-D entry three times a forward),
+   attended_int8 and gcn_chain_fused must launch,
+   dequant_matmul(_gated_logits) and pool_int8 must not, and
    the logits must agree with the same model on plain versions; then once
-   more with ``use_int8=False``, where gcn_chain_fused runs beside
-   dequant_matmul_gated_logits;
+   more with ``use_int8=False``, where gcn_chain_fused and attended_int8
+   run beside dequant_matmul_gated_logits;
 11. ReGAT timing (for information): the int8 GEMM at both entries' path
    shapes against its plain version and ``torch._int_mm`` (with its share
    of the bound and its ratio to that call), gcn_chain_fused at B=512 and
-   8192 with its share of the bound,
+   8192 with its share of the bound, attended_int8 at B=8192 against its
+   plain version and the eager three-pass form, with its share of the
+   bound, the B=8192 forward's attended features by the kernel
+   (``encoder.ROUTES`` kernel 1, plain 0; one attended_int8 launch),
    and the ReGAT forward at B=8192 with the kernels, on plain versions, on
    the bf16 path without ``use_int8`` / ``use_pallas`` and on the bf16 path
    with ``use_pallas`` but without ``use_int8``, with peak memory;
@@ -167,8 +170,8 @@ Phases, each of which raises (exit code 1) on failure:
    (gcn_chain_fused must launch), with each mode's wall time;
 15. Q-Relevant: the full-width q-cap model (bf16, ``use_pallas``) serves
    4 requests of B=512 from a synthetic ``select`` root on the int8 feed
-   (exactly one gru_v2 and one dequant_matmul_gated_logits a request, no
-   dequant_matmul, no pool_int8; its
+   (exactly one gru_v2, one dequant_matmul_gated_logits and one
+   attended_int8 a request, no dequant_matmul, no pool_int8; its
    outputs and its logits before the sigmoid within 3% of the same model on
    plain versions), timed at B=4096 with its peak memory; the max-relevance
    step (q-cap, BUTD, ``use_mtl``, dropout 0.5 / 0.2, bf16 over f32
@@ -499,7 +502,8 @@ ISSUE_PER_MS = PEAK_OPS_PER_MS["f32"] / 2
 # match wins
 PROFILE_KINDS = (
     ("the port's kernels", ("decode_att_", "vocab_topk_", "gru_seq_",
-                            "dequant_matmul_", "pool_int8_", "int8_matmul_",
+                            "dequant_matmul_", "pool_int8_", "attended_int8_",
+                            "int8_matmul_",
                             "gcn_chain_")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "Gemm")),
     ("int64 elementwise (the torch Philox of the hidden masks)", ("<long",)),
@@ -519,6 +523,10 @@ KERNELS = {
         "replaces": "vqa_tpu/ops/pallas/feed_gemm.py:55 and vqa_tpu/ops/attention.py:141"},
     "pool_int8": {"source": "vqa_tpu_torch/csrc/lazyv_pool.cu",
                   "replaces": "vqa_tpu/ops/pallas/lazyv_pool.py:46"},
+    # the port's own: XLA fuses the JAX package's cast and two multiplies
+    "attended_int8": {"source": "vqa_tpu_torch/csrc/lazyv_pool.cu",
+                      "replaces": "none: XLA's fusion of vqa_tpu/models/encoder.py's "
+                                  "v_att * dequantize(img_q, img_scale)"},
     "vocab_topk_lse": {"source": "vqa_tpu_torch/csrc/vocab_topk.cu",
                        "replaces": "vqa_tpu/ops/pallas/vocab_topk.py:114"},
     "decode_att_fwd": {"source": "vqa_tpu_torch/csrc/decode_att.cu",
@@ -546,8 +554,9 @@ VQA_KERNELS = ("gru_v2", "dequant_matmul_gated_logits", "pool_int8")
 DECODE_KERNELS = ("vocab_topk_lse", "gru_v2", "dequant_matmul_gated_logits")
 TRAIN_KERNELS = ("decode_att_fwd", "decode_att_bwd", "decode_att_dvp")
 # a ReGAT forward: the question GRU, the v-projection (3-D entry), the
-# GCN's three projections (2-D entry), the chain; the launches of each
-REGAT_KERNELS = {"gru_v2": 1, "int8_matmul_dequant_3d": 1,
+# attended features, the GCN's three projections (2-D entry), the chain;
+# the launches of each
+REGAT_KERNELS = {"gru_v2": 1, "int8_matmul_dequant_3d": 1, "attended_int8": 1,
                  "int8_matmul_dequant": 3, "gcn_chain_fused": 1}
 # the library kernels, which no model path calls
 LIBRARY_KERNELS = ("fused_multiply_attention_pool", "gru_last_state",
@@ -643,6 +652,8 @@ def plain_kernels(stack: ExitStack, gru_v2, feed_gemm, lazyv_pool,
             feed_gemm, name, getattr(feed_gemm, name + "_reference")))
     stack.enter_context(mock.patch.object(
         lazyv_pool, "pool_int8", lazyv_pool.pool_int8_reference))
+    stack.enter_context(mock.patch.object(
+        lazyv_pool, "attended_int8", lazyv_pool.attended_int8_reference))
     stack.enter_context(mock.patch.object(
         vocab_topk, "vocab_topk_lse", vocab_topk.vocab_topk_lse_reference))
     for name in TRAIN_KERNELS:
@@ -1501,7 +1512,9 @@ def run(args) -> int:
     from vqa_tpu_torch.ops.kernels import (
         _build, decode_att, feed_gemm, fused_attention, gcn_chain, gru, gru_v2,
         gru_v3, int8_matmul, lazyv_pool, vocab_topk)
+    from vqa_tpu_torch.models import encoder as encoder_ops
     from vqa_tpu_torch.ops import linear as linear_ops
+    from vqa_tpu_torch.ops import quant as quant_ops
     from vqa_tpu_torch.ops import rnn as rnn_ops
     from vqa_tpu_torch.ops.quant import quantize_weight_per_col
     from vqa_tpu_torch.models.wrapper import set_model
@@ -1591,6 +1604,13 @@ def run(args) -> int:
         x_q, scale = int8_feed(batch * OBJS, V_DIM)
         att = torch.softmax(torch.randn(batch, OBJS, device=dev, generator=gen), dim=1)
         return (att * scale.view(batch, OBJS).float()).to(bf16), x_q.view(batch, OBJS, V_DIM)
+
+    def attended_inputs(batch: int):
+        """The box weights (a bf16 softmax), the feed's bf16 scales and its
+        payload [batch, OBJS, V_DIM]."""
+        x_q, scale = int8_feed(batch * OBJS, V_DIM)
+        att = torch.softmax(torch.randn(batch, OBJS, device=dev, generator=gen), dim=1)
+        return att.to(bf16), scale.view(batch, OBJS).to(bf16), x_q.view(batch, OBJS, V_DIM)
 
     def vocab_inputs(rows: int, ties: bool, vocab: int = NTOKEN):
         # decoder states lie in (-1, 1); the head keeps torch's Linear init
@@ -1878,6 +1898,16 @@ def run(args) -> int:
                     lazyv_pool.pool_int8_reference(w, x_q),
                     BF16_ATOL, BF16_RTOL, f"B={batch} N={OBJS} D={V_DIM}")
             del w, x_q
+        # the attended features at ReGAT's B=8192, a small and a ragged B:
+        # bit for bit (both products exact in f32, each rounded once)
+        for batch in (REGAT_TIME_BATCH, 3, REGAT_TIME_BATCH - 1):
+            att, scale, x_q = attended_inputs(batch)
+            gate("attended_int8", lazyv_pool.supports_attended(
+                *x_q.shape, att.dtype, scale.dtype), f"B={batch}")
+            compare("attended_int8", lazyv_pool.attended_int8(att, scale, x_q),
+                    lazyv_pool.attended_int8_reference(att, scale, x_q),
+                    0.0, 0.0, f"B={batch} N={OBJS} D={V_DIM}")
+            del att, scale, x_q
         # the beam step's rows R = B x k at B=4096 (at k = 1, 3 and 8, the
         # ends of the kernel's k), a ragged R, then the ragged edges of its
         # tiling (128-row bands, 128-column tiles, vocabulary splits): an R
@@ -2726,7 +2756,8 @@ def run(args) -> int:
         regat_bf16.load_state_dict(regat.state_dict())
         bf16_launches = serve_regat(
             regat_bf16, "use_int8=False",
-            {"gru_v2": 1, "dequant_matmul_gated_logits": 1, "gcn_chain_fused": 1},
+            {"gru_v2": 1, "dequant_matmul_gated_logits": 1, "attended_int8": 1,
+             "gcn_chain_fused": 1},
             ("int8_matmul_dequant", "int8_matmul_dequant_3d", "pool_int8",
              "dequant_matmul"))
 
@@ -2755,6 +2786,23 @@ def run(args) -> int:
                 f"{bounds[name][0] / times[name][0]:.1%}, kernel / torch._int_mm "
                 f"{times[name][0] / library[name]:.3f} [{card}]")
             del x_q, xs, w_q, w_scale, b, ops
+        # the attended features at B=8192; the yardstick is the eager
+        # three-pass form (cast, dequantize's multiply, the weights')
+        att, scale, x_q = attended_inputs(REGAT_TIME_BATCH)
+        times["attended_int8"] = time_pair(
+            lambda: lazyv_pool.attended_int8(att, scale, x_q),
+            lambda: lazyv_pool.attended_int8_reference(att, scale, x_q), 10)
+        bounds["attended_int8"] = bound(
+            nbytes(att, scale, x_q, lazyv_pool.attended_int8(att, scale, x_q)),
+            2.0 * x_q.numel(), "f32")
+        library["attended_int8"] = time_ms(
+            lambda: att[..., None] * quant_ops.dequantize(x_q, scale), 10)
+        log(f"time attended_int8 B={REGAT_TIME_BATCH} N={OBJS} D={V_DIM}: kernel "
+            f"{times['attended_int8'][0]:.4f} ms, plain {times['attended_int8'][1]:.4f} ms, "
+            f"the eager three-pass form {library['attended_int8']:.4f} ms, bound "
+            f"{bounds['attended_int8'][0]:.4f} ms ({bounds['attended_int8'][2]}), share of "
+            f"the bound {bounds['attended_int8'][0] / times['attended_int8'][0]:.1%} [{card}]")
+        del att, scale, x_q
         # the chain at the ReGAT requests' B=512 and at B=8192
         for batch in (SERVE_BATCH, REGAT_TIME_BATCH):
             chain = gcn_inputs(batch, bf16)
@@ -2790,6 +2838,18 @@ def run(args) -> int:
         runs = {"kernels": lambda: regat(big), "plain versions": regat_plain,
                 "bf16, no use_int8 / use_pallas": lambda: regat_dense(big),
                 "bf16 with use_pallas (the chain), no use_int8": lambda: regat_bf16(big)}
+        # the attended features of the B=8192 forward: one kernel pass
+        encoder_ops.reset_routes()
+        _build.reset_launches()
+        runs["kernels"]()
+        torch.cuda.synchronize()
+        require(encoder_ops.ROUTES == {"kernel": 1, "plain": 0}
+                and _build.LAUNCHES["attended_int8"] == 1,
+                f"the B={REGAT_TIME_BATCH} ReGAT forward formed its attended features "
+                f"by {encoder_ops.ROUTES}, attended_int8 launched "
+                f"{_build.LAUNCHES['attended_int8']} times")
+        log(f"regat: B={REGAT_TIME_BATCH} forward: encoder.ROUTES {encoder_ops.ROUTES}, "
+            f"attended_int8 launched once")
         peaks = {}
         for label, run in runs.items():
             torch.cuda.synchronize()
@@ -3185,7 +3245,8 @@ def run(args) -> int:
             f"selected caption each) through VQAModel.forward_vqa; kernel launches "
             f"{qcap_launches}")
         for name, per_request in (("gru_v2", 1), ("dequant_matmul_gated_logits", 1),
-                                  ("dequant_matmul", 0), ("pool_int8", 0)):
+                                  ("attended_int8", 1), ("dequant_matmul", 0),
+                                  ("pool_int8", 0)):
             require(qcap_launches[name] == per_request * SERVE_REQUESTS,
                     f"q-cap serving launched {name} {qcap_launches[name]} times, not "
                     f"{per_request} a request")

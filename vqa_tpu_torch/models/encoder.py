@@ -8,6 +8,11 @@ per-box scales ``img_scale`` [B, objs] (the features are
 caption ``c`` [B, c_len] int tokens with its length ``cap_len`` [B]; for
 the relation encoder ``graph`` [B, objs, objs] int spatial labels (and
 ``sem_graph`` with ``use_sem``).
+
+:data:`ROUTES` counts how the int8 feed's attended features ``v`` were
+formed (``BaseEncoder._visual`` with ``with_v``): ``kernel``, one pass of
+``lazyv_pool.attended_int8`` over the payload, or ``plain``, the
+dequantized features and then the product, as eager PyTorch forms them.
 """
 
 from __future__ import annotations
@@ -26,6 +31,13 @@ from vqa_tpu_torch.ops.kernels import feed_gemm, lazyv_pool
 from vqa_tpu_torch.ops.linear import FCNet
 from vqa_tpu_torch.ops.quant import dequantize
 from vqa_tpu_torch.ops.rnn import SentenceEmbedding
+
+ROUTES = {"kernel": 0, "plain": 0}
+
+
+def reset_routes() -> None:
+    for name in ROUTES:
+        ROUTES[name] = 0
 
 
 def _caption(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
@@ -131,8 +143,11 @@ class BaseEncoder(nn.Module):
           and, with ``with_v_sum``, their sum over the boxes ``v_sum``
           [B, v_dim]; with ``with_v``, ``v`` = v_att * (img_q * img_scale),
           rounded as JAX rounds it: the dequantized features in the scale's
-          dtype, then the product. Without it the dequantized features and
-          ``v_att * v`` are never formed;
+          dtype, then the product (on the kernels, where
+          ``lazyv_pool.supports_attended`` takes the shapes and dtypes, one
+          pass of ``attended_int8`` over the payload, with the same bits).
+          Without it the dequantized features and ``v_att * v`` are never
+          formed;
         - with a caption ``c`` in the batch: ``c`` embedded [B, c_len,
           embed], ``c_target`` (= the tokens) and ``cap_len``.
         """
@@ -167,8 +182,22 @@ class BaseEncoder(nn.Module):
                         else lazyv_pool.pool_int8_reference)
                 out["v_sum"] = pool(w, img_q)
             if self.with_v:
-                out["v"] = v_att * v
+                out["v"] = self._attended(v_att, img_q, img_scale, v)
         return out
+
+    def _attended(self, v_att: torch.Tensor, img_q: torch.Tensor,
+                  img_scale: torch.Tensor, v: Optional[torch.Tensor]
+                  ) -> torch.Tensor:
+        """``v_att * (img_q * img_scale)``: one kernel pass over the payload
+        where the kernels take it, else the product with the dequantized
+        features ``v``, formed here where the attention did not form them;
+        counted in :data:`ROUTES`."""
+        if (self._on_kernels(img_scale) and lazyv_pool.supports_attended(
+                *img_q.shape, v_att.dtype, img_scale.dtype)):
+            ROUTES["kernel"] += 1
+            return lazyv_pool.attended_int8(v_att[..., 0], img_scale, img_q)
+        ROUTES["plain"] += 1
+        return v_att * (dequantize(img_q, img_scale) if v is None else v)
 
     def _on_kernels(self, img_scale: torch.Tensor) -> bool:
         # the kernels take bf16 operands: an f32 model runs the plain path,
@@ -179,8 +208,8 @@ class BaseEncoder(nn.Module):
     def attend_feed(self, img_q: torch.Tensor, img_scale: torch.Tensor,
                     q: torch.Tensor):
         """The attention of q over the int8 feed by one of three routes ->
-        (v_att, the dequantized features where they were formed, else
-        None). ``with_v`` forms them on every route.
+        (v_att, the dequantized features where the route's attention read
+        them, else None): only the plain route forms them.
 
         - ``use_int8`` at inference: the v-projection as one int8 GEMM over
           the payload (``project_v_int8``), then the attention;
@@ -192,18 +221,17 @@ class BaseEncoder(nn.Module):
           then the attention.
         """
         att = self.attention
-        v = dequantize(img_q, img_scale) if self.with_v else None
         if self.use_int8 and not self.training:
             vp = att.project_v_int8(img_q, img_scale, self.use_pallas)
-            return att(v, q, v_cache=vp), v
+            return att(None, q, v_cache=vp), None
         b, objs, k = img_q.shape
         if (isinstance(att, MultiplyAttention) and q.dim() == 2
                 and self._on_kernels(img_scale)
                 and feed_gemm.supports_gated_logits(
                     b * objs, k, att.W_v.main[0].weight_v.shape[0], objs,
                     img_scale.dtype, q.dtype)):
-            return att.attend_int8(img_q, img_scale, q), v
-        v = dequantize(img_q, img_scale) if v is None else v
+            return att.attend_int8(img_q, img_scale, q), None
+        v = dequantize(img_q, img_scale)
         return att(v, q), v
 
 

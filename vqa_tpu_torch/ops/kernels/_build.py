@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # them to show that its path went through the kernels
 LAUNCHES = {"gru_v2": 0, "dequant_matmul": 0,
             "dequant_matmul_gated_logits": 0, "pool_int8": 0,
+            "attended_int8": 0,
             "vocab_topk_lse": 0, "decode_att_fwd": 0, "decode_att_bwd": 0,
             "decode_att_dvp": 0, "int8_matmul_dequant": 0,
             "int8_matmul_dequant_3d": 0, "gcn_chain_fused": 0,
@@ -47,6 +48,8 @@ _ENTRY_POINTS = {
     "dequant_matmul_gated_forward": (_P,) * 6 + (_I,) * 4 + (_P,),
     # w, x_q, out, B, N, D, stream
     "pool_int8_forward": (_P, _P, _P, _I, _I, _I, _P),
+    # att, scale, x_q, out, B, N, D, stream
+    "attended_int8_forward": (_P, _P, _P, _P, _I, _I, _I, _P),
     # h, w, b, part_v, part_i, part_ms, vals, idx, lse, R, H, V, k,
     # tiles_per_split, grid, stream
     "vocab_topk_lse_forward": (_P,) * 9 + (_I,) * 6 + (_P,),
