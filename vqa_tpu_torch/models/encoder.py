@@ -246,7 +246,8 @@ class RelationEncoder(BaseEncoder):
     * img_scale)``, rounded as JAX rounds them, and forms no pooled
     ``v_sum``; its output drops ``v_q8`` and ``v_w``, which no longer
     describe ``v``. The branches and their sum run in the span
-    ``vqa.encoder.graph``.
+    ``vqa.encoder.graph``, and their backward, in a traced training step,
+    in ``vqa.encoder.graph.backward`` (``tracing.backward_span``).
     """
 
     def __init__(self, ntoken: int, v_dim: int, embed_dim: int,
@@ -302,6 +303,7 @@ class RelationEncoder(BaseEncoder):
                 output_v = new_v if output_v is None else output_v + new_v
         if graph_alpha:
             return g_att
+        tracing.backward_span("vqa.encoder.graph.backward", v, output_v)
         out["v"] = output_v
         for key in ("v_sum", "v_q8", "v_w"):
             out.pop(key, None)

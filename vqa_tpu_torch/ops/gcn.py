@@ -17,7 +17,10 @@ Spans (``vqa_tpu_torch/tracing.py``): ``vqa.gcn.project`` around a layer's
 GEMMs over the boxes' features (w_self, the folded direction weight and,
 for the correlated conv, ``similarity_parts``), ``vqa.gcn.chain`` around
 the correlated conv's graph-local rest (the correlation product, its ReLU
-and the fused chain or its plain form).
+and the fused chain or its plain form). :data:`ROUTES` counts
+``CorrelatedGraphConv.attend``'s calls by the route of that rest:
+``fused`` (``gcn_chain_fused``) or ``plain`` (the softmax through
+autograd, as training and ``need_alpha`` take it).
 
 With ``use_int8``, inference quantizes the layer input by rows once and runs
 the w_self, folded-direction and ``a C`` projections as int8 GEMMs
@@ -45,6 +48,13 @@ from vqa_tpu_torch import tracing
 from vqa_tpu_torch.ops.kernels import gcn_chain
 from vqa_tpu_torch.ops.linear import Dense, DotProduct, uniform_
 from vqa_tpu_torch.ops.quant import int8_dot, quantize_rows
+
+ROUTES = {"fused": 0, "plain": 0}
+
+
+def reset_routes() -> None:
+    for name in ROUTES:
+        ROUTES[name] = 0
 
 
 def label_bias_sum(graph: torch.Tensor, bias: torch.Tensor,
@@ -177,6 +187,7 @@ class CorrelatedGraphConv(DirectedGraphConv):
                 alpha = (torch.einsum("bik,bjk->bij", fc, feature)
                          + u[:, :, None] + w[:, None, :])
             alpha = torch.relu(alpha)
+            ROUTES["fused" if fused else "plain"] += 1
             if fused:
                 out = gcn_chain.gcn_chain_fused(
                     out_self, proj, alpha, graph.to(torch.int32).contiguous(),

@@ -23,6 +23,11 @@ trace holds them only where the profiler traces every thread, as the
 CLI's ``--profile_dir`` one does. The totals gather every thread's spans
 (autograd's worker threads included) and cover what ran while a
 profiler was on, since the process started or since :func:`reset`.
+
+:func:`backward_span` times the backward of a stage of the forward: the
+same span, opened where the gradient reaches the stage's output and
+closed where its input's gradient is complete, by two tensor hooks that
+it registers only while a profiler runs and the stage takes a gradient.
 """
 
 from __future__ import annotations
@@ -85,6 +90,29 @@ class _Span:
                 _pending.append((self.name, *self.events))
         self.range.__exit__(*exc)
         return False
+
+
+def backward_span(name: str, x: torch.Tensor, y: torch.Tensor) -> None:
+    """Time the backward of the stage that maps ``x`` to ``y`` as the span
+    ``name``: a hook on ``y`` opens it when the gradient reaches ``y``, a
+    hook on ``x`` closes it when ``x``'s gradient is complete. The hooks
+    are registered only while a profiler runs and both tensors take a
+    gradient; otherwise nothing is inserted."""
+    if not (_profiler._is_profiler_enabled and x.requires_grad
+            and y.requires_grad):
+        return
+    opened: List[_Span] = []
+
+    def open_span(grad):
+        if not opened:
+            opened.append(_Span(name, True, None).__enter__())
+
+    def close_span(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    y.register_hook(open_span)
+    x.register_hook(close_span)
 
 
 def _resolve() -> None:
